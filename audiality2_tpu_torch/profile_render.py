@@ -1,0 +1,110 @@
+"""Where a slice render's time goes on the card.
+
+    python3 -m audiality2_tpu_torch.profile_render [--seconds 10]
+        [--channels 2] [--top 15]
+
+Renders the slice song three times: to warm up, timed, and under
+``torch.profiler``.  Prints the unprofiled render's wall time and host
+seconds per render phase (record, build, mix, fetch), the device time
+summed over the CUDA kernels of the profiled render and its share of
+the unprofiled wall time (the rest is the device's idle share; the
+profiler's own overhead inflates the profiled wall time, not the
+kernels' device time), the number of kernel launches per superblock
+(and the oscillator's among them), and the kernels that take the most
+device time; the last line is the same as one JSON object.  Needs a
+CUDA device.
+"""
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from . import open_engine
+from .cuda import osc_kernel as OK
+from .engine.device_render import DeviceRenderer, SUPERBLOCK_FRAMES
+from .songs import SLICE_SONG
+
+
+def _render(seconds, channels, profiler=None):
+    i = open_engine(44100, 4096, channels, batched=False)
+    song = i.get(i.load_string(SLICE_SONG, "slice"), "Song")
+    r = DeviceRenderer(i, channels=channels, device="cuda")
+    r.timestamp_reset()
+    r.start(0, song)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if profiler is None:
+        r.render(int(seconds * 44100), bufsize=SUPERBLOCK_FRAMES)
+    else:
+        with profiler:
+            r.render(int(seconds * 44100), bufsize=SUPERBLOCK_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if r.fell_back:
+        raise RuntimeError("the render bridged natively")
+    r.close()
+    return wall, r.timings
+
+
+def _device_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seconds", type=float, default=10.0)
+    ap.add_argument("--channels", type=int, default=2)
+    ap.add_argument("--top", type=int, default=15)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_render: no CUDA device", file=sys.stderr)
+        return 2
+    _render(a.seconds, a.channels)                    # warm-up
+    OK.osc_call.launches = 0
+    plain_wall, tm = _render(a.seconds, a.channels)
+    osc_launches = OK.osc_call.launches
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof_wall, _ = _render(a.seconds, a.channels, prof)
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(_device_us(e) for e in kernels) * 1e-6
+    nlaunch = sum(e.count for e in kernels)
+    nsb = -(-int(a.seconds * 44100) // SUPERBLOCK_FRAMES)
+    print("card: %s" % torch.cuda.get_device_name(0))
+    print("render %.1f s audio, %d ch, %d superblocks: %.4f s unprofiled "
+          "(%.1f x realtime), %.4f s profiled"
+          % (a.seconds, a.channels, nsb, plain_wall, a.seconds / plain_wall,
+             prof_wall))
+    print("phases (unprofiled, host s): " + ", ".join(
+        "%s %.4f" % kv for kv in tm.items()))
+    print("device busy %.4f s = %.1f%% of the unprofiled wall time; "
+          "%d kernel launches (%.0f per superblock), %d of the oscillator"
+          % (busy_s, 100 * busy_s / plain_wall, nlaunch, nlaunch / nsb,
+             osc_launches))
+    top = sorted(kernels, key=_device_us, reverse=True)[:a.top]
+    for e in top:
+        print("  %9.3f ms %6d x  %s" % (_device_us(e) * 1e-3, e.count,
+                                        e.key[:100]))
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0), "seconds": a.seconds,
+        "channels": a.channels, "superblocks": nsb,
+        "wall_s": plain_wall, "profiled_wall_s": prof_wall,
+        "x_realtime": a.seconds / plain_wall, "phases_s": tm,
+        "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / plain_wall,
+        "kernel_launches": nlaunch, "osc_launches": osc_launches,
+        "top_kernels_ms": {e.key[:100]: _device_us(e) * 1e-3
+                           for e in top}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,120 @@
+"""The port's control plane is a verbatim copy, and the port stands
+without JAX.
+
+``audiality2_tpu_torch`` keeps byte-identical copies of the JAX
+package's JAX-free modules (compiler, engine state, objects, units,
+native bindings): a change on either side shows here.  In a fresh
+interpreter with ``jax`` and ``audiality2_tpu`` blocked on
+``sys.meta_path``, the port imports, renders a short song on the CPU,
+and ``chip_smoke.py``'s imports resolve."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+COPIES = [
+    "constants.py", "errors.py", "fixmath.py", "native.py",
+    "a2s/__init__.py", "a2s/program.py", "a2s/compiler.py",
+    "a2s/disasm.py",
+    "objects/__init__.py", "objects/banks.py", "objects/handles.py",
+    "objects/waves.py", "objects/streams.py",
+    "units/__init__.py", "units/descriptors.py", "units/ramper.py",
+    "units/host_units.py",
+    "engine/__init__.py", "engine/state.py", "engine/core.py",
+    "engine/drivers.py", "engine/render.py",
+]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_control_plane_copy_is_verbatim(rel):
+    with open(os.path.join(ROOT, "audiality2_tpu", rel), "rb") as f:
+        orig = f.read()
+    with open(os.path.join(ROOT, "audiality2_tpu_torch", rel), "rb") as f:
+        copy = f.read()
+    assert copy == orig, "audiality2_tpu_torch/%s drifted" % rel
+
+
+_BLOCK = r"""
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "audiality2_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+for m in list(sys.modules):
+    if m.split(".")[0] in ("jax", "jaxlib", "audiality2_tpu"):
+        del sys.modules[m]
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, %r)
+"""
+
+
+def _run_blocked(body):
+    r = subprocess.run([sys.executable, "-c", _BLOCK % ROOT + body],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return r.stdout
+
+
+def test_port_imports_and_renders_without_jax():
+    out = _run_blocked(r"""
+import numpy as np
+import audiality2_tpu_torch as a2
+from audiality2_tpu_torch.engine.device_render import DeviceRenderer
+from audiality2_tpu_torch.native import NativeRenderer
+from audiality2_tpu_torch.songs import SLICE_SONG
+def open_(cls, **kw):
+    i = a2.open_engine(44100, 4096, 2, batched=False)
+    s = i.get(i.load_string(SLICE_SONG, "s"), "Song")
+    r = cls(i, channels=2, **kw)
+    r.timestamp_reset()
+    r.start(0, s)
+    return r
+want = open_(NativeRenderer).run(4096)
+r = open_(DeviceRenderer, device="cpu")
+got = r.render(4096)
+assert (got == want).all() and not r.fell_back and np.abs(got).max() > 0
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "audiality2_tpu")]
+assert not bad, bad
+print("ok")
+""")
+    assert out.strip().endswith("ok")
+
+
+def test_chip_smoke_imports_without_jax():
+    out = _run_blocked(r"""
+import chip_smoke
+assert chip_smoke.main.__module__ == "chip_smoke"
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "audiality2_tpu")]
+assert not bad, bad
+print("ok")
+""")
+    assert out.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(where, tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without a
+    CUDA device, and in a directory that holds nothing of the repo
+    but the script."""
+    import shutil
+    import torch
+    if where == "repo" and torch.cuda.is_available():
+        pytest.skip("a card is present")
+    script = os.path.join(ROOT, "chip_smoke.py")
+    cwd = ROOT
+    if where == "alone":
+        cwd = str(tmp_path)
+        script = shutil.copy(script, cwd)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, script], capture_output=True,
+                       text=True, timeout=600, cwd=cwd, env=env)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
