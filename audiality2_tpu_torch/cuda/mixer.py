@@ -1,19 +1,22 @@
 """TorchMixer: runs a SuperblockProgram in PyTorch.
 
 Counterpart of the JAX package's ``DeviceMixer._build_inner``
-(``audiality2_tpu/tpu/superblock.py:3638``) for programs whose items
-are stages only (panmix, copy, waveshaper):
+(``audiality2_tpu/tpu/superblock.py:3638``):
 
   runs --(_expand_rows: run -> row expansion, ramp replay)--> rows
   rows --(osc_call per pass class; noise/dc rows in torch)--> audio
   audio, stash --(int32 segment sums)--> slots[ninst*F+1, 2, 64]
-  slots --(stages in record order)--> master slice [F, channels, 64]
+  slots --(stage tail: panmix/copy/waveshaper stages, fbdelay,
+           filter12/dcblock/limiter, fm, in record order)--> slots
+  slots --> master slice [F, channels, 64]
 
-fbdelay and filter/fm items raise ``Unsupported`` (the renderer then
-bridges natively, as the reference does for content its device
-program cannot express).  The mixer takes the program as the builder
-made it: eager PyTorch needs none of the JAX mixer's shape padding,
-and that padding changes no number.
+The stage tail's serial recurrences run as CUDA kernels
+(``fbdelay.py``, ``filter.py``, ``fm.py``); their state (fbdelay
+rings, filter and fm state) persists on the mixer from one superblock
+to the next, as in the JAX mixer.  The mixer takes the program as the
+builder made it: eager PyTorch needs none of the JAX mixer's shape
+padding, and that padding changes no number.  Slots are updated in
+place where the JAX functions return new arrays.
 
 Integer semantics follow the reference exactly: int32 audio with
 wrap, int64 where the reference computes in int64, arithmetic right
@@ -25,6 +28,9 @@ import numpy as np
 import torch
 
 from ..constants import A2_MAXFRAG
+from . import fbdelay as FB
+from . import filter as FL
+from . import fm as FM
 from . import osc_kernel as OK
 from .osc_kernel import _w
 from .superblock import (
@@ -32,11 +38,17 @@ from .superblock import (
     RC_DAMP, RC_VOL0, RC_DVOL, RC_PAN0, RC_DPAN, RC_SLOT, RC_MODE, RC_OFF,
     RC_TOTAL, RC_PHHI, RC_PHLO, RC_RIDX, RR_MIP, RR_AT, RR_ATMR, RR_VT,
     RR_VTMR, RR_PT, RR_PTMR, RR_PV, RR_PTGT, RR_PTIMER, RR_PRAMP,
-    RR_DPHRAW, RR_PERIOD, RR_BASE, RUN_KCHUNK, Unsupported,
+    RR_DPHRAW, RR_PERIOD, RR_BASE, RUN_KCHUNK,
     _ROW_NOISE, _ROW_DC, _ROW_STEREO, _ROW_HASPM, _ROW_CLAMP)
 
 FRAG = A2_MAXFRAG
 _M32 = 0xFFFFFFFF
+# every kernel wrapper of the mixer's path, by kernel name; each counts
+# its launches in `.launches`
+KERNEL_WRAPPERS = {"osc_rows": OK.osc_call,
+                   "fbdelay_dense": FB.fbd_dense_call,
+                   "fbdelay_legacy": FB.fbd_legacy_call,
+                   "filter": FL.filter_call, "fm": FM.fm_call}
 
 
 def _pitch_tables():
@@ -346,6 +358,20 @@ def _apply_stage(slots, key, arr):
     _stage_delta(key, slots, arr[:, 0], arr[:, 1], arr)
 
 
+def stage_items(prog):
+    """The stage tail in execution order, as the JAX mixer runs it
+    (``DeviceMixer._prepare``): stages, fbdelays and filter/fm items
+    merged and sorted by (key, tiebreak), the tiebreak being the unit
+    id of an fbdelay.  Returns [(tag, key, item)] with tag "stage",
+    "fbd" or "filt"."""
+    items = [("stage", st["key"], st, "") for st in prog.stages]
+    items += [("fbd", fd["key"], fd, str(fd["unit_id"]))
+              for fd in prog.fbdelays]
+    items += [("filt", fl["key"], fl, "") for fl in prog.filters]
+    items.sort(key=lambda t: (t[1], t[3]))
+    return [t[:3] for t in items]
+
+
 class TorchMixer:
     """Executes SuperblockPrograms with PyTorch on ``device``; the
     oscillator runs through ``osc_kernel.osc_call`` (the CUDA kernel
@@ -363,6 +389,11 @@ class TorchMixer:
         self._atlas_ver = -1
         self._ptabs = (torch.as_tensor(_PTAB_BASE, device=self.device),
                        torch.as_tensor(_PTAB_COEFF, device=self.device))
+        self._rings = {}         # unit id -> [ring, ring position]
+        self._fbd_dense = {}     # unit id -> sticky dense flag
+        self._fbd_par = {}       # unit id -> (fb, ld, rd) of the dense form
+        self._filt = {}          # item key -> (state, serials)
+        self._sine = None
 
     def device_atlas(self):
         """The pair atlas on the mixer's device (uploaded again when
@@ -379,15 +410,6 @@ class TorchMixer:
     def _t(self, a, dtype=torch.int64):
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device) \
             .to(dtype)
-
-    @staticmethod
-    def check(prog):
-        """Raises Unsupported for items this mixer cannot run yet."""
-        if prog.fbdelays:
-            raise Unsupported("fbdelay stages are not ported yet")
-        if prog.filters:
-            raise Unsupported("filter12/dcblock/limiter/fm stages are "
-                              "not ported yet")
 
     def row_params(self, prog):
         """Run -> row expansion (the JAX mixer's ``_expand_rows`` up to
@@ -532,10 +554,83 @@ class TorchMixer:
         else:
             slots.view(slots.shape[0], 2 * FRAG).index_add_(0, slot_r, audio)
 
+    def _fbd_is_dense(self, fd):
+        """The sticky dense flag (JAX ``DeviceMixer._repad``): once a
+        superblock needs the legacy form for an instance, or its
+        delays differ from those its dense form began with, the
+        instance stays legacy."""
+        uid = fd["unit_id"]
+        dense = bool(fd["dense"]) and self._fbd_dense.get(uid, True)
+        if dense:
+            dense = self._fbd_par.setdefault(uid, fd["fbpar"]) \
+                == fd["fbpar"]
+        self._fbd_dense[uid] = dense
+        return dense
+
+    def _fbdelay(self, slots, fd, F):
+        """One fbdelay item, with its ring.  The two forms keep their
+        rings in two formats (dense: the last 2^17 samples, time
+        ordered; legacy: a 2^20 ring ending at position - 1); a switch
+        from dense to legacy converts the ring exactly (JAX
+        ``_prepare``)."""
+        uid = fd["unit_id"]
+        dense = self._fbd_is_dense(fd)
+        want = FB.FBD_TAIL if dense else FB.FBD_BUFSIZE
+        ring = self._rings.get(uid)
+        if ring is None:
+            ring = [torch.zeros((2, want), dtype=torch.int32,
+                                device=self.device), 0]
+        elif ring[0].shape[1] != want:
+            cur = ring[0]
+            if dense:
+                pos = ring[1] & (FB.FBD_BUFSIZE - 1)
+                idx = (pos - FB.FBD_TAIL + torch.arange(
+                    FB.FBD_TAIL, device=self.device)) % FB.FBD_BUFSIZE
+                ring = [cur[:, idx].contiguous(), 0]
+            else:
+                full = torch.zeros((2, FB.FBD_BUFSIZE), dtype=torch.int32,
+                                   device=self.device)
+                full[:, FB.FBD_BUFSIZE - FB.FBD_TAIL:] = cur
+                ring = [full, 0]
+        self._rings[uid] = ring
+        arr = self._t(fd["arr"], torch.int32)
+        sig = (fd["stereoin"], fd["stereoout"], fd["add"], fd["chunk"])
+        if dense:
+            ring[0] = FB.apply_fbdelay_dense(slots, sig + fd["fbpar"], arr,
+                                             ring[0], F)
+        else:
+            FB.apply_fbdelay(slots, sig, arr, ring[0], ring[1])
+            ring[1] = (ring[1] + int(fd["arr"][:, 5].sum())) \
+                % FB.FBD_BUFSIZE
+
+    def _filter(self, slots, fl):
+        """One filter12 / dcblock / limiter / fm item.  Its state rows
+        follow the unit serials: a serial seen in the previous
+        superblock keeps its row, a new one starts from the initial
+        state (JAX ``_prepare`` / ``_build_fn``)."""
+        kind, key, cur = fl["kind"], fl["key"], fl["serials"]
+        K = fl["arr"].shape[1]
+        state = FL.init_state(kind, K, self.device)
+        prev = self._filt.get(key)
+        if prev is not None:
+            pos = {s: i for i, s in enumerate(prev[1])}
+            perm = [(j, pos[s]) for j, s in enumerate(cur) if s in pos]
+            if perm:
+                dst, src = zip(*perm)
+                state[list(dst)] = prev[0][list(src)]
+        arr = self._t(fl["arr"], torch.int32)
+        if kind == "fm":
+            if self._sine is None:
+                self._sine = self._t(FM.sine_pairs(), torch.int32)
+            FM.fm_call(slots, (key[3], key[4], key[5][0]), arr, state,
+                       self._sine)
+        else:
+            FL.filter_call(slots, kind, key[3:8], arr, state)
+        self._filt[key] = (state, list(cur))
+
     def dispatch(self, prog):
         """Runs one superblock; returns the master slice as a device
         tensor [F, channels, 64] (int32, or int16 for readback="i16")."""
-        self.check(prog)
         F = prog.F
         nslot = prog.ninst * F + 1
         dev = self.device
@@ -551,13 +646,16 @@ class TorchMixer:
         if prog.stash_mono is not None and len(prog.stash_mono):
             slots[:, 0].index_add_(0, self._t(prog.stash_mono_slot),
                                    self._t(prog.stash_mono, torch.int32))
-        # stages run in record order (the builder sorted them by key)
-        for st in prog.stages:
-            if st["dense"].shape[0]:
-                _apply_stage_dense(slots, st["key"], self._t(st["dense"]),
-                                   F)
-            if st["arr"].shape[0]:
-                _apply_stage(slots, st["key"], self._t(st["arr"]))
+        for tag, key, it in stage_items(prog):
+            if tag == "stage":
+                if it["dense"].shape[0]:
+                    _apply_stage_dense(slots, key, self._t(it["dense"]), F)
+                if it["arr"].shape[0]:
+                    _apply_stage(slots, key, self._t(it["arr"]))
+            elif tag == "fbd":
+                self._fbdelay(slots, it, F)
+            else:
+                self._filter(slots, it)
         m = prog.master_inst
         master = slots[m * F:(m + 1) * F, :prog.master_channels]
         if self.readback == "i16":

@@ -15,19 +15,17 @@ row's ``[OFF, END)`` window.  All arithmetic is int32 with wrap.
 
 ``osc_call`` runs the plain version for CPU tensors and the kernel in
 ``csrc/osc_kernel.cu`` for CUDA tensors; the kernel is built with
-``nvcc`` at first use into ``cuda/build/`` and bound with ctypes.
+``nvcc`` at first use into ``cuda/build/`` and bound with ctypes
+(``build.py``).
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 
 from ..constants import A2_MAXFRAG, A2_WAVEPRE
+from . import build
 
 FRAG = A2_MAXFRAG           # 64 frames per row
 RPB = 128                   # rows per block
@@ -46,14 +44,6 @@ ROW_CLAMP = 4               # panmix clamps v0/v1 at 2*vol
 # pass classes: a block of class c holds a table of at most c atlas
 # rows; 18 covers a mip-0 2048-entry table plus its padding
 PASS_CLASSES = (1, 2, 4, 8, 18)
-
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     "csrc", "osc_kernel.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-BUILD_TIMEOUT_S = 300
 
 
 class PairAtlas:
@@ -118,8 +108,8 @@ def pass_class(npass):
 
 def _w(x):
     """int64 tensor -> the int32 two's-complement wrap of each value,
-    kept in int64."""
-    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    kept in int64 (the conversion keeps the low 32 bits)."""
+    return x.to(torch.int32).to(torch.int64)
 
 
 def _mul_shr24(x, y):
@@ -299,65 +289,16 @@ def seeded_blocks(npass, nblocks, rng, dead=False):
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------
 
-class _Lib:
-    handle = None            # the loaded ctypes library
-    path = None
-    build_log = ""
-
-
-def _lib_path():
-    with open(_CSRC, "rb") as f:
-        digest = hashlib.sha256(f.read()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(_BUILD_DIR, "libosc_%s.so" % digest[:12])
-
-
-def build_library(verbose=False):
-    """Compiles csrc/osc_kernel.cu with nvcc for sm_90a into
-    cuda/build/ (named by the source's hash, so an edited source never
-    meets a stale binary) and returns the library's path.  Raises if
-    nvcc is missing, fails or exceeds BUILD_TIMEOUT_S."""
-    path = _lib_path()
-    if os.path.exists(path):
-        return path
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the oscillator kernel is "
-                           "built from source on the machine with the "
-                           "card")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (path, os.getpid())
-    cmd = [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, _CSRC]
-    r = subprocess.run(cmd, capture_output=True, text=True,
-                       timeout=BUILD_TIMEOUT_S)
-    _Lib.build_log = r.stdout + r.stderr
-    if r.returncode:
-        raise RuntimeError("nvcc failed (%d):\n%s"
-                           % (r.returncode, _Lib.build_log))
-    os.replace(tmp, path)
-    return path
+def _bind(lib):
+    lib.a2_osc_rows.restype = ctypes.c_int
+    lib.a2_osc_rows.argtypes = (
+        [ctypes.c_void_p] * 4                  # tbase params atlas out
+        + [ctypes.c_int] * 6                   # NB T npass quality
+        + [ctypes.c_void_p])                   #  fused mono; stream
 
 
 def _load():
-    if _Lib.handle is None:
-        path = build_library()
-        lib = ctypes.CDLL(path)
-        lib.a2_osc_rows.restype = ctypes.c_int
-        lib.a2_osc_rows.argtypes = (
-            [ctypes.c_void_p] * 4                  # tbase params atlas out
-            + [ctypes.c_int] * 6                   # NB T npass quality
-            + [ctypes.c_void_p])                   #  fused mono; stream
-        _Lib.handle, _Lib.path = lib, path
-    return _Lib.handle
-
-
-def _check(t, name, shape):
-    if t.dtype != torch.int32 or not t.is_contiguous() \
-            or tuple(t.shape) != tuple(shape):
-        raise ValueError("osc_call: %s must be a contiguous int32 tensor "
-                         "of shape %s, got %s %s"
-                         % (name, tuple(shape), t.dtype, tuple(t.shape)))
+    return build.load("osc_kernel", _bind)
 
 
 def osc_call(npass, tbase, params, atlas, quality=0, fused_pm=True,
@@ -373,12 +314,11 @@ def osc_call(npass, tbase, params, atlas, quality=0, fused_pm=True,
     if params.device.type != "cuda":
         raise ValueError("osc_call: unsupported device %s" % params.device)
     NB = params.shape[1] // RPB
-    _check(tbase, "tbase", (NB,))
-    _check(params, "params", (NPARAM, NB * RPB))
-    _check(atlas, "atlas", (atlas.shape[0], RPB))
-    for t in (tbase, atlas):
-        if t.device != params.device:
-            raise ValueError("osc_call: tensors on different devices")
+    dev = params.device
+    for t, name, shape in ((tbase, "tbase", (NB,)),
+                           (params, "params", (NPARAM, NB * RPB)),
+                           (atlas, "atlas", (atlas.shape[0], RPB))):
+        build.check_tensor(t, "osc_call", name, torch.int32, shape, dev)
     if npass not in PASS_CLASSES or quality not in (0, 1, 2):
         raise ValueError("osc_call: npass %r / quality %r"
                          % (npass, quality))
@@ -395,8 +335,7 @@ def osc_call(npass, tbase, params, atlas, quality=0, fused_pm=True,
                               atlas.shape[0], npass, quality,
                               int(bool(fused_pm)), int(bool(mono)),
                               stream)
-    if err:
-        raise RuntimeError("osc kernel launch failed: cudaError %d" % err)
+    build.launch_check(err, "osc")
     osc_call.launches += 1
     return out
 

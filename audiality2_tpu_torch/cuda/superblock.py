@@ -18,9 +18,8 @@ from ..constants import A2_MAXFRAG
 from . import osc_kernel as OK
 
 FRAG = A2_MAXFRAG
-# fbdelay ring sizes the builder checks a superblock against (the
-# mixer of this package does not run fbdelay yet: such items raise
-# Unsupported there, and the renderer bridges natively)
+# fbdelay ring sizes: the legacy ring per channel, and the dense
+# form's tail (the builder checks a superblock against both)
 _FBD_BUFSIZE = 1 << 20
 FBD_TAIL = 1 << 17
 

@@ -8,9 +8,11 @@ card; only the master audio returns to the host.  Rendering is
 synchronous, one superblock after another: no threads, no pipelining
 and no profile pass.
 
-Content the mixer cannot express yet (fbdelay, filters, fm), or a
-record error, makes the renderer restart on the pure native path,
-bit-exact either way, as the reference does; ``fell_back`` says so.
+Content the device program cannot express (the builder raises
+``Unsupported``, e.g. an fbdelay legacy ring a superblock would wrap),
+or a record error (e.g. a sub-fragment fbdelay), makes the renderer
+restart on the pure native path, bit-exact either way, as the
+reference does; ``fell_back`` says so.
 """
 
 import time
@@ -109,8 +111,8 @@ class DeviceRenderer:
     def record_program(self, frames):
         """Records `frames` frames on the native control plane and
         builds their superblock program.  Raises A2Exception on a
-        record error and Unsupported for content the mixer cannot run
-        (the native state has advanced either way)."""
+        record error and Unsupported for content the device program
+        cannot express (the native state has advanced either way)."""
         t0 = time.perf_counter()
         rows, stages, stash, nfrag = self.nr.record(frames)
         t1 = time.perf_counter()
@@ -119,7 +121,6 @@ class DeviceRenderer:
             sizes.append(frames % 64)
         prog = program_from_native(rows, stages, stash, nfrag, sizes,
                                    self.atlas_entry, self.master_channels)
-        self.mixer.check(prog)
         self.timings["record"] += t1 - t0
         self.timings["build"] += time.perf_counter() - t1
         return prog

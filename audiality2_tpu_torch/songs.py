@@ -41,3 +41,78 @@ Song()
 	d 1500
 }
 """
+
+# Effects: saw leads through filter12 and dcblock, fm2 bells, both into
+# a stereo feedback delay, the whole song through a stereo limiter on
+# the master bus.  140 loop steps of 70 ms plus a 1.5 s tail: about
+# 11 s of audio.  A 2752x64-frame superblock records one dense stereo
+# fbdelay item (fb/ld/rd 300/200/250 ms), the master limiter (one
+# instance), and filter12, dcblock and fm items of about 60 instances.
+EFFECTS_SONG = """
+Lead(P V=1)
+{
+	struct { wtosc; filter12; dcblock db; panmix }
+	lp .5; bp .4; hp .2
+	w saw; p P; a (V * .3)
+	cutoff 3; q 1.5
+	db.cutoff 2n
+	d 30
+	cutoff (P + 2); q .7; d 200
+	a 0; d 150
+}
+Bell(P V=1)
+{
+	struct { fm2; panmix }
+	p P; a V; p1 (P + 1); a1 .5; fb .2
+	d 10
+	a 0; d 350
+}
+Echo()
+{
+	struct { inline 0 2; fbdelay 2 2; panmix 2 > }
+	fbdelay 300; ldelay 200; rdelay 250
+	drygain .7; fbgain .3; lgain .3; rgain .3
+	!n 0
+	140 {
+		Lead (n * .0833 - 1) .3
+		Bell (n * .0833 + 1) .1
+		+n 1
+		d 70
+	}
+	d 1500
+}
+Song()
+{
+	struct { inline 0 2; panmix PM 2 2; limiter L 2 > }
+	L.release 64; L.threshold 4
+	1:Echo
+	d 11000
+}
+"""
+
+# A mono fbdelay voice that starts 100 ms into the song: the first
+# superblock covers the delay only partly, so the instance takes the
+# fbdelay's legacy form (a 2^20 ring) for the whole song.  About 1.4 s.
+LATE_FBDELAY_SONG = """
+Song(V=1)
+{
+	struct { wtosc; fbdelay; panmix }
+	drygain .5; fbgain .4; lgain .4; rgain .4
+	w saw; a (V * .3); p 0n
+	d 1100
+	a 0
+	d 100
+}
+
+export SongMain(V=1)
+{
+	struct { inline; panmix }
+	d 100
+	1:Song V
+	d 1300
+}
+"""
+
+# the songs by name, with the program each starts
+SONGS = {"slice": (SLICE_SONG, "Song"), "effects": (EFFECTS_SONG, "Song"),
+         "late_fbdelay": (LATE_FBDELAY_SONG, "SongMain")}

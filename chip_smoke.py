@@ -9,23 +9,39 @@ seconds:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, whether nvcc is found;
-2. build: the native runtime (native/build.sh) and the oscillator
-   kernel (nvcc for sm_90a), from the sources in the checkout, in
-   parallel;
+2. build: the native runtime (native/build.sh) and the four kernel
+   libraries (one nvcc per source for sm_90a), from the sources in the
+   checkout, all in parallel;
 3. kernel: the CUDA oscillator against its plain PyTorch version on
    the card, on seeded rows for every pass class x quality x mono x
    fused_pm and on the slice song's real blocks: 0 mismatches; times
-   the kernel and the plain version at the real shape;
-4. slice: the slice song (stereo, 44.1 kHz, 10 s, superblocks of
+   the kernel (the median of OSC_ROUNDS rounds, each round's time
+   kept) and the plain version at the real shape;
+4. tail: the stage-tail kernels (fbdelay dense and legacy, filter12 /
+   dcblock / limiter, fm) against their plain versions: on seeded
+   tables for every variant (the CUDA entry point against the same
+   entry point on CPU copies, which takes the plain version), and on
+   the real items of the effects song's first superblock and of the
+   late fbdelay song's (the whole real tables, seeded slot contents;
+   the plain version on the card): 0 mismatches; times each kernel and
+   each plain version at that shape;
+5. slice: the slice song (stereo, 44.1 kHz, 10 s, superblocks of
    2752x64 frames) through ``DeviceRenderer(device=DEVICE).render``
    against the native renderer, bit for bit, with no native bridging
-   and with oscillator launches; then 2 s mono the same way.
+   and with oscillator launches; then 2 s mono the same way;
+6. effects: the effects song, stereo 10 s, the same way, with launches
+   of the oscillator, the dense fbdelay, the filter and the fm kernels;
+7. legacy: the late fbdelay song, mono, the same way, with launches of
+   the legacy fbdelay kernel.
 
-Then one JSON line with the kernel's numbers and, last, the
-``{"ok": true, "device": ...}`` line.  Any failure raises, and the exit
-code is not 0.  Needs one card; exits non-zero without one.
+Every kernel launch counter is set to 0 just before each render and
+read just after.  Then one JSON line with the kernels' numbers and,
+last, the ``{"ok": true, "device": ...}`` line.  Any failure raises,
+and the exit code is not 0.  Needs one card; exits non-zero without
+one.
 """
 
+import itertools
 import json
 import os
 import shutil
@@ -37,11 +53,16 @@ import numpy as np
 import torch
 
 import audiality2_tpu_torch as a2
+from audiality2_tpu_torch.cuda import build
+from audiality2_tpu_torch.cuda import fbdelay as FB
+from audiality2_tpu_torch.cuda import filter as FL
+from audiality2_tpu_torch.cuda import fm as FM
 from audiality2_tpu_torch.cuda import osc_kernel as OK
+from audiality2_tpu_torch.cuda.mixer import KERNEL_WRAPPERS
 from audiality2_tpu_torch.engine.device_render import (DeviceRenderer,
                                                        SUPERBLOCK_FRAMES)
 from audiality2_tpu_torch.native import NativeRenderer
-from audiality2_tpu_torch.songs import SLICE_SONG
+from audiality2_tpu_torch.songs import SONGS
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 44100
@@ -50,6 +71,8 @@ SR = 44100
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 64 * 132 * 1.98e9
 DEVICE = "cuda"
+# rounds of the oscillator's timing, for its spread within one run
+OSC_ROUNDS = 5
 
 
 class SmokeFailure(Exception):
@@ -80,13 +103,57 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
-def open_song(channels, renderer, **kw):
+def bound(nbytes, nops):
+    """(bound ms, "bytes" or "operations") of work at the card's peaks."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = nops / INT32_OPS_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def record(name, source, replaces, ms, plain_ms, nbytes, nops, max_err,
+           **extra):
+    bms, by = bound(nbytes, nops)
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0, "max_abs_err": max_err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+           "bound_by": by, "library_ms": None}
+    rec.update(extra)
+    return rec
+
+
+def mismatches(pairs):
+    """(mismatching values, max abs difference) over (kernel, plain)
+    tensor pairs."""
+    bad = err = 0
+    for a, b in pairs:
+        a = a.cpu().to(torch.int64)
+        b = b.cpu().to(torch.int64)
+        check(a.shape == b.shape, "kernel and plain shapes differ")
+        bad += int((a != b).sum())
+        if a.numel():
+            err = max(err, int((a - b).abs().max()))
+    return bad, err
+
+
+def open_song(song, channels, renderer, **kw):
+    src, program = SONGS[song]
     i = a2.open_engine(SR, 4096, channels, batched=False)
-    song = i.get(i.load_string(SLICE_SONG, "slice"), "Song")
+    s = i.get(i.load_string(src, song), program)
     r = renderer(i, channels=channels, **kw)
     r.timestamp_reset()
-    r.start(0, song)
+    r.start(0, s)
     return r
+
+
+def first_program(song, channels):
+    """The first superblock program of `song`, recorded on the card's
+    renderer."""
+    r = open_song(song, channels, DeviceRenderer, device=DEVICE)
+    prog = r.record_program(SUPERBLOCK_FRAMES)
+    atlas = r.mixer.device_atlas()
+    r.close()
+    return prog, r, atlas
 
 
 def phase_device():
@@ -112,29 +179,32 @@ def phase_build():
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
     try:
-        lib = OK.build_library(verbose=True)
+        paths = build.build(verbose=True)
     finally:
-        nout, _ = native.communicate(timeout=OK.BUILD_TIMEOUT_S)
+        nout, _ = native.communicate(timeout=build.BUILD_TIMEOUT_S)
     check(native.returncode == 0, "native build failed:\n" + nout)
     OK._load()
-    ptxas = [ln.strip() for ln in OK._Lib.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    FB._load()
+    FL._load()
+    FM._load()
+    ptxas = ["%s: %s" % (n, " | ".join(
+        ln.strip() for ln in build.build_log.get(n, "").splitlines()
+        if "registers" in ln or "spill" in ln)) for n in build.SOURCES]
     phase("build", t0, "native/liba2rt.so, %s; ptxas: %s"
-          % (os.path.relpath(lib, ROOT), " | ".join(ptxas[:4])))
+          % (", ".join(os.path.relpath(p, ROOT) for p in paths.values()),
+             " || ".join(ptxas)))
 
 
 def compare(cls, tb, par, atlas, quality, fused, mono):
     got = OK.osc_call(cls, tb, par, atlas, quality=quality,
                       fused_pm=fused, mono=mono)
     want = OK.osc_rows_torch(cls, tb, par, atlas, quality, fused, mono)
-    check(got.shape == want.shape, "kernel output shape")
-    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
-    return int((got != want).sum()), int(diff.max()) if diff.numel() else 0
+    return mismatches([(got, want)])
 
 
 def phase_kernel():
-    """Kernel vs plain version; returns the kernel's JSON record
-    (launches filled in by the slice phase)."""
+    """Oscillator kernel vs plain version; returns the kernel's JSON
+    record (launches filled in by the slice phase)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(2024)
     nvar = 0
@@ -154,12 +224,10 @@ def phase_kernel():
                     nvar += 1
 
     # the slice song's first superblock at its real shapes
-    r = open_song(2, DeviceRenderer, device=DEVICE)
-    prog = r.record_program(SUPERBLOCK_FRAMES)
+    prog, r, atlas = first_program("slice", 2)
     classes, _, mono = r.mixer.row_params(prog)
-    atlas = r.mixer.device_atlas()
-    r.close()
-    ms = plain_ms = 0.0
+    rounds = [0.0] * OSC_ROUNDS
+    plain_ms = 0.0
     nbytes = nops = 0
     nrows = 0
     shapes = []
@@ -173,8 +241,9 @@ def phase_kernel():
         R = par.shape[1]
         nrows += R
         shapes.append("%dx%d" % (cls, R // OK.RPB))
-        ms += cuda_ms(lambda: OK.osc_call(cls, tb, par, atlas, 0, True,
-                                          mono), reps=20)
+        for i in range(OSC_ROUNDS):
+            rounds[i] += cuda_ms(lambda: OK.osc_call(cls, tb, par, atlas, 0,
+                                                     True, mono), reps=20)
         plain_ms += cuda_ms(lambda: OK.osc_rows_torch(cls, tb, par, atlas,
                                                       0, True, mono),
                             reps=3, warmup=1)
@@ -182,40 +251,284 @@ def phase_kernel():
         nbytes += par.numel() * 4 + tb.numel() * 4 + atlas.numel() * 4 \
             + C * OK.FRAG * R * 4
         nops += R * OK.FRAG * OK.ops_per_frame(0, True, mono)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = nops / INT32_OPS_S * 1e3
+    ms = float(np.median(rounds))
     phase("kernel", t0, "%d variants + slice blocks (pass class x blocks: "
-          "%s, %d rows) equal to the plain version; kernel %.4f ms, plain "
-          "%.3f ms per superblock" % (nvar, " ".join(shapes), nrows, ms,
-                                      plain_ms))
-    return {"name": "osc_rows", "route": "cuda",
-            "source": "audiality2_tpu_torch/cuda/csrc/osc_kernel.cu",
-            "replaces": "audiality2_tpu/tpu/osc_kernel.py:117",
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "rows": nrows,
-            "variants_checked": nvar}
+          "%s, %d rows) equal to the plain version; kernel %.4f ms (median "
+          "of rounds %s), plain %.3f ms per superblock"
+          % (nvar, " ".join(shapes), nrows, ms,
+             " ".join("%.4f" % t for t in rounds), plain_ms))
+    return record("osc_rows", "audiality2_tpu_torch/cuda/csrc/osc_kernel.cu",
+                  "audiality2_tpu/tpu/osc_kernel.py:117", ms, plain_ms,
+                  nbytes, nops, max_err, rows=nrows,
+                  variants_checked=nvar, ms_rounds=rounds)
 
 
-def render_check(channels, seconds, label):
-    """Renders the slice song through the port and natively; returns
-    (oscillator launches, x realtime, timings)."""
+# ---------------------------------------------------------------
+# the stage tail's kernels
+# ---------------------------------------------------------------
+
+def on(dev, *arrays):
+    """Copies of numpy arrays on `dev`."""
+    return [torch.tensor(np.ascontiguousarray(a), device=dev)
+            for a in arrays]
+
+
+def seeded_tail(rng):
+    """Every seeded variant through the CUDA entry points against the
+    same entry points on CPU copies (the plain versions); returns
+    {kernel name: (variants, max abs err)}."""
+    out = {}
+    n = err = 0
+    for form in itertools.product((True, False), repeat=3):
+        for C in (1, 4):
+            slots, arr, ring, bufpos = FB.seeded_legacy(rng, C)
+            res = []
+            for dev in (DEVICE, "cpu"):
+                s, a, rg = on(dev, slots, arr, ring)
+                FB.apply_fbdelay(s, form + (C,), a, rg, bufpos)
+                res.append((s, rg))
+            bad, e = mismatches(zip(*res))
+            check(bad == 0, "fbdelay legacy %s C %d: %d mismatches"
+                  % (form, C, bad))
+            n, err = n + 1, max(err, e)
+    out["fbdelay_legacy"] = (n, err)
+    n = err = 0
+    for form in itertools.product((True, False), repeat=3):
+        for F in (12, 40):
+            slots, arr, tail, par = FB.seeded_dense(rng, F)
+            sig = form + (FB.chunk_for(par[0]),) + par
+            res = []
+            for dev in (DEVICE, "cpu"):
+                s, a, tl = on(dev, slots, arr, tail)
+                res.append((s, FB.apply_fbdelay_dense(s, sig, a, tl, F)))
+            bad, e = mismatches(zip(*res))
+            check(bad == 0, "fbdelay dense %s F %d: %d mismatches"
+                  % (form, F, bad))
+            n, err = n + 1, max(err, e)
+    out["fbdelay_dense"] = (n, err)
+    n = err = 0
+    # K = 300 makes the block's threads take several instances each
+    for kind, (ni, no), add, SK in itertools.product(
+            FL.KINDS, ((1, 1), (2, 2), (1, 2), (2, 1)), (True, False),
+            ((12, 6), (3, 300))):
+        S, K = SK
+        slots, arr, state = FL.seeded_item(rng, kind, ni, no, S, K,
+                                           nslot=2 * K + 8)
+        sig = (ni, no, add, (0, 1)[:ni] if ni == 2 else (1,),
+               (1, 0) if no == 2 else (0,))
+        res = []
+        for dev in (DEVICE, "cpu"):
+            s, a, st = on(dev, slots, arr, state)
+            FL.filter_call(s, kind, sig, a, st)
+            res.append((s, st))
+        bad, e = mismatches(zip(*res))
+        check(bad == 0, "filter %s %d->%d add %s K %d: %d mismatches"
+              % (kind, ni, no, add, K, bad))
+        n, err = n + 1, max(err, e)
+    out["filter"] = (n, err)
+    n = err = 0
+    sine = {dev: on(dev, FM.sine_pairs())[0] for dev in (DEVICE, "cpu")}
+    for sk, add, SK in itertools.product(FM.STRUCTKEYS, (True, False),
+                                         ((8, 5), (2, 300))):
+        S, K = SK
+        slots, arr, state = FM.seeded_item(rng, sk, S, K, nslot=2 * K + 8)
+        res = []
+        for dev in (DEVICE, "cpu"):
+            s, a, st = on(dev, slots, arr, state)
+            FM.fm_call(s, (sk, add, 1 if add else 0), a, st, sine[dev])
+            res.append((s, st))
+        bad, e = mismatches(zip(*res))
+        check(bad == 0, "fm %d add %s K %d: %d mismatches"
+              % (sk, add, K, bad))
+        n, err = n + 1, max(err, e)
+    out["fm"] = (n, err)
+    return out
+
+
+def time_pair(kernel, plain, make):
+    """Kernel ms (3 timed runs after 1 warm-up on the inputs of make(),
+    which the runs keep updating) and plain ms of one run; kernel and
+    plain version over the same fresh inputs of make() must agree.
+    kernel/plain take the inputs and return the tensors to compare."""
+    warm = make()
+    ms = cuda_ms(lambda: kernel(*warm), reps=3, warmup=1)
+    del warm
+    kin = make()
+    pin = [t.clone() for t in kin]
+    got = kernel(*kin)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(*pin)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad, err = mismatches(zip(got, want))
+    return ms, plain_ms, bad, err
+
+
+def seeded_i32(gen, shape):
+    """Seeded int32 audio-range values on the card."""
+    return torch.randint(-(1 << 27), 1 << 27, shape, dtype=torch.int32,
+                         device=DEVICE, generator=gen)
+
+
+def real_tail(rng):
+    """The real items of the effects song's first stereo superblock (and
+    the late fbdelay song's legacy item): returns {kernel name: dict of
+    ms, plain_ms, bytes, ops, max_err, shape notes}."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(rng.integers(1 << 30)))
+    prog, _, _ = first_program("effects", 2)
+    slots0 = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FB.FRAG))
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
+               "max_err": 0, "items": []}
+           for k in ("fbdelay_dense", "fbdelay_legacy", "filter", "fm")}
+
+    def add(name, note, ms, plain_ms, bad, err, nbytes, nops):
+        check(bad == 0, "%s kernel != plain on the real item %s: %d "
+              "mismatches" % (name, note, bad))
+        o = out[name]
+        o["ms"] += ms
+        o["plain_ms"] += plain_ms
+        o["bytes"] += nbytes
+        o["ops"] += nops
+        o["max_err"] = max(o["max_err"], err)
+        o["items"].append("%s %.3f ms (plain %.1f ms)" % (note, ms,
+                                                          plain_ms))
+
+    for fd in prog.fbdelays:
+        check(fd["dense"], "the effects song's fbdelay is not dense")
+        sig = (fd["stereoin"], fd["stereoout"], fd["add"], fd["chunk"]) \
+            + fd["fbpar"]
+        a = on(DEVICE, fd["arr"])[0]
+        x, gains = FB.fbd_dense_inputs(slots0, sig, a, prog.F)
+        npad = x.shape[1]
+        g = torch.zeros(npad, dtype=torch.int32, device=DEVICE)
+        g[:gains.shape[0]] = gains[:, 1].to(torch.int32)
+        tail = seeded_i32(gen, (2, FB.FBD_TAIL))
+        fb, C = fd["fbpar"][0], fd["chunk"]
+
+        def make():
+            buf = torch.empty((2, FB.FBD_TAIL + npad), dtype=torch.int32,
+                              device=DEVICE)
+            buf[:, :FB.FBD_TAIL] = tail
+            return (buf,)
+
+        ms, pms, bad, err = time_pair(
+            lambda buf: (FB.fbd_dense_call(x, g, buf, fb, C), buf),
+            lambda buf: (FB.fbd_dense_torch(x, g, buf, fb, C), buf), make)
+        add("fbdelay_dense", "C%d x %d steps" % (C, npad // (C * 64)),
+            ms, pms, bad, err, *FB.dense_work(npad, fb))
+
+    for fl in prog.filters:
+        kind, key = fl["kind"], fl["key"]
+        S, K = fl["arr"].shape[:2]
+        arr = on(DEVICE, fl["arr"])[0]
+        if kind == "fm":
+            sine = on(DEVICE, FM.sine_pairs())[0]
+            sig = (key[3], key[4], key[5][0])
+
+            def kernel(s, a, st):
+                return s, FM.fm_call(s, sig, a, st, sine)
+
+            def plain(s, a, st):
+                return s, FM.fm_torch(s, sig, a, st, sine)
+            name = "fm"
+            nbytes, nops = FM.work(fl["arr"], sig[0], sig[1])
+        else:
+            sig = key[3:8]
+
+            def kernel(s, a, st, kind=kind, sig=sig):
+                return s, FL.filter_call(s, kind, sig, a, st)
+
+            def plain(s, a, st, kind=kind, sig=sig):
+                return s, FL.filter_torch(s, kind, sig, a, st)
+            name = "filter"
+            nbytes, nops = FL.work(fl["arr"], kind, *sig[:3])
+
+        def make(kind=kind, K=K, arr=arr):
+            return (slots0.clone(), arr, FL.init_state(kind, K, DEVICE))
+
+        ms, pms, bad, err = time_pair(
+            lambda s, a, st: kernel(s, a, st),
+            lambda s, a, st: plain(s, a, st), make)
+        add(name, "%s S%d K%d" % (kind if kind != "fm" else "fm%d" % key[3],
+                                  S, K), ms, pms, bad, err, nbytes, nops)
+
+    # the legacy form: the late fbdelay song's first mono superblock
+    prog, _, _ = first_program("late_fbdelay", 1)
+    slots0 = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FB.FRAG))
+    for fd in prog.fbdelays:
+        check(not fd["dense"], "the late fbdelay song's item is dense")
+        C = fd["chunk"]
+        sig = (fd["stereoin"], fd["stereoout"], fd["add"], C)
+        a = on(DEVICE, fd["arr"])[0]
+        x, starts = FB.fbd_legacy_inputs(slots0, sig, a, 12345)
+        starts = (starts & (FB.FBD_BUFSIZE - 1)).to(torch.int32)
+        ring0 = seeded_i32(gen, (2, FB.FBD_BUFSIZE))
+        ms, pms, bad, err = time_pair(
+            lambda ring: (FB.fbd_legacy_call(x, a, starts, ring, C), ring),
+            lambda ring: (FB.fbd_legacy_torch(x, a, starts, ring, C), ring),
+            lambda: (ring0.clone(),))
+        add("fbdelay_legacy", "C%d NS%d" % (C, fd["arr"].shape[0]), ms,
+            pms, bad, err, *FB.legacy_work(fd["arr"]))
+    return out
+
+
+def phase_tail():
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    seeded = seeded_tail(rng)
+    real = real_tail(rng)
+    sources = {
+        "fbdelay_dense": ("fbdelay_kernel.cu", "_apply_fbdelay_dense",
+                          2101),
+        "fbdelay_legacy": ("fbdelay_kernel.cu", "_apply_fbdelay", 1982),
+        "filter": ("filter_kernel.cu", "_apply_filter", 2219),
+        "fm": ("fm_kernel.cu", "_apply_fm", 2604)}
+    recs = []
+    notes = []
+    for name, (src, fn, line) in sources.items():
+        nvar, serr = seeded[name]
+        o = real[name]
+        check(o["items"], "no real %s item to check" % name)
+        recs.append(record(
+            name, "audiality2_tpu_torch/cuda/csrc/" + src,
+            "audiality2_tpu/tpu/superblock.py:%d" % line, o["ms"],
+            o["plain_ms"], o["bytes"], o["ops"], max(serr, o["max_err"]),
+            variants_checked=nvar, real_items=o["items"],
+            replaces_function=fn))
+        notes.append("%s: %d seeded variants, real %s"
+                     % (name, nvar, "; ".join(o["items"])))
+    phase("tail", t0, "kernels equal to their plain versions (kernel and "
+          "plain ms on the whole real items): %s" % " | ".join(notes))
+    return recs
+
+
+# ---------------------------------------------------------------
+# renders against native
+# ---------------------------------------------------------------
+
+def render_check(song, channels, seconds, label, need):
+    """Renders `song` through the port and natively over the same
+    superblocks; checks bit equality, no bridging, and a launch of each
+    kernel in `need`.  Returns ({kernel: launches}, x realtime,
+    timings, wall s)."""
     frames = int(seconds * SR)
     # native renders the same superblocks (a ragged last fragment would
     # bend its ramps off the device path's full-fragment record)
-    nat = open_song(channels, NativeRenderer)
+    nat = open_song(song, channels, NativeRenderer)
     want = np.concatenate(
         [nat.run(SUPERBLOCK_FRAMES)
          for _ in range(-(-frames // SUPERBLOCK_FRAMES))], axis=1)[:, :frames]
     nat.close()
-    r = open_song(channels, DeviceRenderer, device=DEVICE)
-    OK.osc_call.launches = 0
+    r = open_song(song, channels, DeviceRenderer, device=DEVICE)
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     out = r.render(frames, bufsize=SUPERBLOCK_FRAMES)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = OK.osc_call.launches
+    launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
     fell_back = r.fell_back
     timings = dict(r.timings)
     r.close()
@@ -223,21 +536,50 @@ def render_check(channels, seconds, label):
           "%s: output shape %s" % (label, out.shape))
     check(np.abs(out).max() > 0, "%s: silent output" % label)
     check(not fell_back, "%s: bridged natively" % label)
-    check(launches > 0, "%s: the oscillator kernel never launched" % label)
+    for k in need:
+        check(launches[k] > 0, "%s: the %s kernel never launched"
+              % (label, k))
     bad = int((out != want).sum())
     check(bad == 0, "%s: %d samples differ from native" % (label, bad))
     return launches, seconds / dt, timings, dt
 
 
+def split(tm):
+    return "record %.3f, build %.3f, mix %.3f, fetch %.3f" \
+        % (tm["record"], tm["build"], tm["mix"], tm["fetch"])
+
+
 def phase_slice():
     t0 = time.perf_counter()
-    launches, xrt, tm, dt = render_check(2, 10.0, "stereo 10 s")
-    mono_launches, mono_xrt, _, _ = render_check(1, 2.0, "mono 2 s")
+    launches, xrt, tm, dt = render_check("slice", 2, 10.0, "slice stereo "
+                                         "10 s", ["osc_rows"])
+    mono, mono_xrt, _, _ = render_check("slice", 1, 2.0, "slice mono 2 s",
+                                        ["osc_rows"])
     phase("slice", t0, "stereo 10 s == native, %.1f x realtime (%.3f s: "
-          "record %.3f, build %.3f, mix %.3f, fetch %.3f), %d oscillator "
-          "launches; mono 2 s == native, %.1f x realtime, %d launches"
-          % (xrt, dt, tm["record"], tm["build"], tm["mix"], tm["fetch"],
-             launches, mono_xrt, mono_launches))
+          "%s), %d oscillator launches; mono 2 s == native, %.1f x "
+          "realtime, %d launches"
+          % (xrt, dt, split(tm), launches["osc_rows"], mono_xrt,
+             mono["osc_rows"]))
+    return launches
+
+
+def phase_effects():
+    t0 = time.perf_counter()
+    launches, xrt, tm, dt = render_check(
+        "effects", 2, 10.0, "effects stereo 10 s",
+        ["osc_rows", "fbdelay_dense", "filter", "fm"])
+    phase("effects", t0, "stereo 10 s == native, %.1f x realtime (%.3f s: "
+          "%s); launches %s" % (xrt, dt, split(tm), json.dumps(launches)))
+    return launches
+
+
+def phase_legacy():
+    t0 = time.perf_counter()
+    launches, xrt, tm, dt = render_check(
+        "late_fbdelay", 1, 1.4, "late fbdelay mono 1.4 s",
+        ["fbdelay_legacy"])
+    phase("legacy", t0, "mono 1.4 s == native, %.1f x realtime (%.3f s: "
+          "%s); launches %s" % (xrt, dt, split(tm), json.dumps(launches)))
     return launches
 
 
@@ -247,9 +589,16 @@ def main():
         return 2
     phase_device()
     phase_build()
-    kern = phase_kernel()
-    kern["launches"] = phase_slice()
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    kernels = [phase_kernel()] + phase_tail()
+    paths = {"osc_rows": phase_slice()}
+    effects = phase_effects()
+    legacy = phase_legacy()
+    for k in ("fbdelay_dense", "filter", "fm"):
+        paths[k] = effects
+    paths["fbdelay_legacy"] = legacy
+    for rec in kernels:
+        rec["launches"] = paths[rec["name"]][rec["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,9 @@ without JAX.
 package's JAX-free modules (compiler, engine state, objects, units,
 native bindings): a change on either side shows here.  In a fresh
 interpreter with ``jax`` and ``audiality2_tpu`` blocked on
-``sys.meta_path``, the port imports, renders a short song on the CPU,
-and ``chip_smoke.py``'s imports resolve."""
+``sys.meta_path``, the port (its stage-tail kernel modules and
+``profile_render`` included) imports, renders the slice and effects
+songs briefly on the CPU, and ``chip_smoke.py``'s imports resolve."""
 
 import os
 import subprocess
@@ -66,20 +67,23 @@ def test_port_imports_and_renders_without_jax():
     out = _run_blocked(r"""
 import numpy as np
 import audiality2_tpu_torch as a2
+from audiality2_tpu_torch.cuda import build, fbdelay, filter, fm, mixer
 from audiality2_tpu_torch.engine.device_render import DeviceRenderer
 from audiality2_tpu_torch.native import NativeRenderer
-from audiality2_tpu_torch.songs import SLICE_SONG
-def open_(cls, **kw):
+from audiality2_tpu_torch.songs import EFFECTS_SONG, SLICE_SONG
+from audiality2_tpu_torch import profile_render
+def open_(cls, src, **kw):
     i = a2.open_engine(44100, 4096, 2, batched=False)
-    s = i.get(i.load_string(SLICE_SONG, "s"), "Song")
+    s = i.get(i.load_string(src, "s"), "Song")
     r = cls(i, channels=2, **kw)
     r.timestamp_reset()
     r.start(0, s)
     return r
-want = open_(NativeRenderer).run(4096)
-r = open_(DeviceRenderer, device="cpu")
-got = r.render(4096)
-assert (got == want).all() and not r.fell_back and np.abs(got).max() > 0
+for src in (SLICE_SONG, EFFECTS_SONG):
+    want = open_(NativeRenderer, src).run(4096)
+    r = open_(DeviceRenderer, src, device="cpu")
+    got = r.render(4096)
+    assert (got == want).all() and not r.fell_back and np.abs(got).max() > 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "audiality2_tpu")]
 assert not bad, bad
 print("ok")

@@ -5,7 +5,9 @@ One native record pass feeds both builders (the port's
 programs must be equal table for table.  Then ``TorchMixer(device=
 "cpu")`` (the oscillator's plain version) must equal
 ``DeviceMixer(interpret=True)`` exactly, mono and stereo, on the slice
-song and two short scripts: pitch ramps only, and a waveshaper stage.
+song and two short scripts: pitch ramps only, and a waveshaper stage;
+and on an fbdelay item (the rest of the stage tail is in
+``test_torch_stage_tail.py``).
 """
 
 import numpy as np
@@ -236,7 +238,15 @@ def test_stage_paths_match_original(key):
 
 
 def test_fbdelay_item_raises_unsupported():
-    prog, _, tpa, _ = record(FBD_SONG, 2, 4096)
+    """An fbdelay item (which raised Unsupported before the stage tail
+    was ported) now runs on TorchMixer and equals the JAX mixer."""
+    import copy
+    prog, jprog, tpa, jpa = record(FBD_SONG, 2, 4096)
     assert prog.fbdelays
-    with pytest.raises(SB.Unsupported):
-        TorchMixer(_Core(tpa), device="cpu").run(prog)
+    got = TorchMixer(_Core(tpa), device="cpu").run(prog)
+    want = JSB.DeviceMixer(_Core(jpa), interpret=True).run(
+        copy.deepcopy(jprog))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and int((g != w).sum()) == 0
+    assert any(np.abs(g).max() > 0 for g in got)
