@@ -10,8 +10,9 @@ state is ``[K, 2, 2]`` int32 (d1, d2 per channel) for filter12 and
 dcblock and ``[K]`` int64 (the unsigned 32-bit peak) for the limiter.
 
 ``filter_call`` runs the kernel in ``csrc/filter_kernel.cu`` for CUDA
-tensors and ``filter_torch`` (a loop over slices and samples on [K]
-tensors, int64 carrying int32 wrap) for CPU tensors.  Unlike the pure
+tensors, one step group (``stage_groups.py``) at a time, and
+``filter_torch`` (a loop over slices and samples on [K] tensors, int64
+carrying int32 wrap, step by step) for CPU tensors.  Unlike the pure
 JAX function both update ``slots`` and ``state`` in place.
 """
 
@@ -23,12 +24,16 @@ import torch
 from ..constants import A2_MAXFRAG
 from . import build
 from .osc_kernel import _w
+from .stage_groups import step_groups
 
 FRAG = A2_MAXFRAG
 _M32 = 0xFFFFFFFF
 KINDS = ("f12", "dcb", "lim")
 # limiter peak state starts at 32768<<8 (reference limiter.c lim_init)
 LIM_PEAK0 = 32768 << 8
+# (step, instance) pairs of a kernel's scratch tile: 8 MiB of filter
+# scratch, which stays in the card's 50 MB L2
+SCRATCH_PAIRS = 16384
 
 
 def init_state(kind, K, device):
@@ -179,8 +184,10 @@ def filter_torch(slots, kind, sig, arr, state):
 def _bind(lib):
     lib.a2_filter.restype = ctypes.c_int
     lib.a2_filter.argtypes = (
-        [ctypes.c_void_p] * 4                  # slots arr state scratch
-        + [ctypes.c_int] * 10                  # S K kind ni no add sch dch
+        [ctypes.c_void_p] * 5                  # slots arr state scratch
+        #                                        bounds
+        + [ctypes.c_int] * 11                  # G tmax K kind ni no add
+        #                                        sch0 sch1 dch0 dch1
         + [ctypes.c_void_p])                   # stream
 
 
@@ -188,11 +195,30 @@ def _load():
     return build.load("filter_kernel", _bind)
 
 
-def filter_call(slots, kind, sig, arr, state):
+def groups(arr, sig):
+    """Step bounds int32 [G + 1] of the numpy table arr [S, K, 13] of
+    an item with signature sig (stage_groups.step_groups: sources in
+    columns 0 (and 1 for stereo input), destinations in 2 (and 3 for
+    stereo output), frames in 5)."""
+    ni, no, add = sig[:3]
+    return step_groups(arr, (0, 1)[:ni], (2, 3)[:no], 4, add)
+
+
+def tile_steps(bounds, K):
+    """Steps per tile: the longest group, at most SCRATCH_PAIRS // K
+    (at least 1)."""
+    return int(max(1, min(np.diff(bounds).max(initial=1),
+                          SCRATCH_PAIRS // K)))
+
+
+def filter_call(slots, kind, sig, arr, state, bounds=None):
     """One filter12 / dcblock / limiter item (see filter_torch): the
     plain version for CPU tensors, the kernel for CUDA tensors
-    (``filter_call.launches`` counts its launches).  Updates slots and
-    state in place; returns state."""
+    (``filter_call.launches`` counts its launches, and
+    ``filter_call.kind_launches`` by kind), which runs the
+    item's step groups ``bounds`` (``groups``; computed from a host
+    copy of arr when not given).  Updates slots and state in place;
+    returns state."""
     if slots.device.type == "cpu":
         return filter_torch(slots, kind, sig, arr, state)
     ni, no, add, sch, dch = sig
@@ -213,20 +239,39 @@ def filter_call(slots, kind, sig, arr, state):
                            dev)
     if S == 0 or K == 0:
         return state
-    scratch = torch.empty((K, 2, FRAG), dtype=torch.int32, device=dev)
+    if bounds is None:
+        bounds = groups(arr.cpu().numpy(), sig)
+    check_bounds(bounds, S, what)
+    tmax = tile_steps(bounds, K)
+    scratch = torch.empty((tmax, K, 2, FRAG), dtype=torch.int32,
+                          device=dev)
+    bt = torch.as_tensor(bounds, dtype=torch.int32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.a2_filter(slots.data_ptr(), arr.data_ptr(),
-                            state.data_ptr(), scratch.data_ptr(), S, K,
+                            state.data_ptr(), scratch.data_ptr(),
+                            bt.data_ptr(), len(bounds) - 1, tmax, K,
                             KINDS.index(kind), ni, no, int(bool(add)),
                             sch[0], sch[-1], dch[0], dch[-1], stream)
     build.launch_check(err, "filter")
     filter_call.launches += 1
+    filter_call.kind_launches[kind] += 1
     return state
 
 
+def check_bounds(bounds, S, what):
+    """Raises unless bounds are step bounds 0 = b0 < b1 < ... = S."""
+    b = np.asarray(bounds)
+    if b.ndim != 1 or len(b) < 2 or b[0] != 0 or b[-1] != S \
+            or (np.diff(b) <= 0).any():
+        raise ValueError("%s: bad step group bounds for S=%d: %s"
+                         % (what, S, b))
+
+
 filter_call.launches = 0
+# the same launches by kind (a dict that callers may zero with launches)
+filter_call.kind_launches = dict.fromkeys(KINDS, 0)
 
 
 def seeded_slices(rng, S, K):
@@ -243,18 +288,64 @@ def seeded_slices(rng, S, K):
     return off, np.where(pad, 0, frm), pad
 
 
-def seeded_item(rng, kind, ni, no, S=24, K=6, nslot=20):
+# slot layouts of seeded tables (seeded_layout)
+LAYOUTS = ("shared", "free", "split")
+
+
+def seeded_layout(rng, S, K, layout="shared", nslot=20):
+    """Slot columns (source 0, source 1, destination 0, destination 1)
+    int64 [S, K, 4], offsets, frames and the slot count of a seeded
+    [S, K] slice table.  "shared": slots drawn from few values, so
+    instances share destinations and step groups break often; "free":
+    every slice reads and writes slots of its own, so one step group
+    spans the table; "split": each instance runs in place (sources =
+    destinations) over consecutive fragments, each cut into 1-3
+    slices, whose windows do not overlap (one group too, which a test
+    per slot alone would cut at every split).  Padding slices
+    (frames 0, at each instance's end) carry the dead slot (the last)
+    as their destinations."""
+    if layout == "shared":
+        cols = rng.integers(0, min(nslot - 1, 2 * K), (S, K, 4))
+        off, frm, pad = seeded_slices(rng, S, K)
+    elif layout == "free":
+        cols = np.arange(4 * S * K).reshape(4, S, K).transpose(1, 2, 0)
+        nslot = 4 * S * K + 1
+        off, frm, pad = seeded_slices(rng, S, K)
+    elif layout == "split":
+        off = np.zeros((S, K), np.int64)
+        frm = np.zeros((S, K), np.int64)
+        frag = np.zeros((S, K), np.int64)
+        for k in range(K):
+            s = f = 0
+            while s < S:
+                cuts = np.sort(rng.choice(np.arange(1, FRAG),
+                                          rng.integers(0, 3),
+                                          replace=False))
+                edges = [0] + cuts.tolist() + [FRAG]
+                for a, b in zip(edges, edges[1:]):
+                    if s < S:
+                        off[s, k], frm[s, k], frag[s, k] = a, b - a, f
+                        s += 1
+                f += 1
+        slot = np.arange(K)[None, :] * S + frag
+        cols = np.repeat(slot[:, :, None], 4, axis=2)
+        nslot = K * S + 1
+        last = rng.integers(S // 2, S + 1, K)
+        pad = np.arange(S)[:, None] >= last[None, :]
+        frm = np.where(pad, 0, frm)
+    else:
+        raise ValueError("layout %r" % layout)
+    cols[:, :, 2:4][pad] = nslot - 1
+    return cols, off, frm, nslot
+
+
+def seeded_item(rng, kind, ni, no, S=24, K=6, nslot=20, layout="shared"):
     """Seeded inputs of one filter item: (slots int32 [nslot, 2, 64],
-    arr int32 [S, K, 13], state).  Sources and destinations are drawn
-    from few slots, so instances share destinations; padding slices
-    carry the dead slot (nslot - 1) as their destinations."""
-    dead = nslot - 1
+    arr int32 [S, K, 13], state), slots laid out as seeded_layout
+    says (which may change nslot)."""
     arr = np.zeros((S, K, 13), np.int64)
-    arr[:, :, :4] = rng.integers(0, min(nslot - 1, 2 * K), (S, K, 4))
-    off, frm, pad = seeded_slices(rng, S, K)
-    arr[:, :, 4] = off
-    arr[:, :, 5] = frm
-    arr[:, :, 2:4][pad] = dead
+    arr[:, :, :4], arr[:, :, 4], arr[:, :, 5], nslot = seeded_layout(
+        rng, S, K, layout, nslot)
     if kind == "f12":
         arr[:, :, 6] = rng.integers(1 << 12, 1 << 16, (S, K)) << 4
         arr[:, :, 7] = rng.integers(-(1 << 10), 1 << 10, (S, K))

@@ -13,9 +13,10 @@ fragment-frame-0 normalised.  State ``[K, 4]`` int32 is each op's last
 output, which feeds back into its own phase through
 ``(last * fb) >> 17``.
 
-``fm_call`` runs the kernel in ``csrc/fm_kernel.cu`` for CUDA tensors
-and ``fm_torch`` (a loop over slices and samples on [K] tensors) for
-CPU tensors.  Unlike the pure JAX function both update ``slots`` and
+``fm_call`` runs the kernel in ``csrc/fm_kernel.cu`` for CUDA tensors,
+one step group (``stage_groups.py``) at a time, and ``fm_torch`` (a
+loop over slices and samples on [K] tensors, step by step) for CPU
+tensors.  Unlike the pure JAX function both update ``slots`` and
 ``state`` in place.
 """
 
@@ -27,7 +28,9 @@ import torch
 from ..constants import A2_MAXFRAG
 from ..units.host_units import _fm_sine
 from . import build
-from .filter import active_samples, sample_windows, seeded_slices
+from .filter import (active_samples, check_bounds, sample_windows,
+                     seeded_layout, tile_steps)
+from .stage_groups import step_groups
 from .osc_kernel import _w
 
 FRAG = A2_MAXFRAG
@@ -135,8 +138,9 @@ def fm_torch(slots, sig, arr, state, sine):
 def _bind(lib):
     lib.a2_fm.restype = ctypes.c_int
     lib.a2_fm.argtypes = (
-        [ctypes.c_void_p] * 5                  # slots arr state sine scratch
-        + [ctypes.c_int] * 5                   # S K structkey add dch
+        [ctypes.c_void_p] * 6                  # slots arr state sine scratch
+        #                                        bounds
+        + [ctypes.c_int] * 6                   # G tmax K structkey add dch
         + [ctypes.c_void_p])                   # stream
 
 
@@ -144,10 +148,19 @@ def _load():
     return build.load("fm_kernel", _bind)
 
 
-def fm_call(slots, sig, arr, state, sine):
+def groups(arr, sig):
+    """Step bounds int32 [G + 1] of the numpy table arr [S, K, 27] of
+    an item with signature sig (stage_groups.step_groups: no sources,
+    the destination in column 0, frames in 2)."""
+    return step_groups(arr, (), (0,), 1, sig[1])
+
+
+def fm_call(slots, sig, arr, state, sine, bounds=None):
     """One fm item (see fm_torch): the plain version for CPU tensors,
     the kernel for CUDA tensors (``fm_call.launches`` counts its
-    launches).  Updates slots and state in place; returns state."""
+    launches), which runs the item's step groups ``bounds``
+    (``groups``; computed from a host copy of arr when not given).
+    Updates slots and state in place; returns state."""
     if slots.device.type == "cpu":
         return fm_torch(slots, sig, arr, state, sine)
     structkey, add, dch = sig
@@ -165,13 +178,19 @@ def fm_call(slots, sig, arr, state, sine):
     build.check_tensor(sine, what, "sine", torch.int32, (2048,), dev)
     if S == 0 or K == 0:
         return state
-    scratch = torch.empty((K, FRAG), dtype=torch.int32, device=dev)
+    if bounds is None:
+        bounds = groups(arr.cpu().numpy(), sig)
+    check_bounds(bounds, S, what)
+    tmax = tile_steps(bounds, K)
+    scratch = torch.empty((tmax, K, FRAG), dtype=torch.int32, device=dev)
+    bt = torch.as_tensor(bounds, dtype=torch.int32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.a2_fm(slots.data_ptr(), arr.data_ptr(), state.data_ptr(),
-                        sine.data_ptr(), scratch.data_ptr(), S, K,
-                        structkey, int(bool(add)), dch, stream)
+                        sine.data_ptr(), scratch.data_ptr(), bt.data_ptr(),
+                        len(bounds) - 1, tmax, K, structkey,
+                        int(bool(add)), dch, stream)
     build.launch_check(err, "fm")
     fm_call.launches += 1
     return state
@@ -180,17 +199,14 @@ def fm_call(slots, sig, arr, state, sine):
 fm_call.launches = 0
 
 
-def seeded_item(rng, structkey, S=16, K=5, nslot=20):
+def seeded_item(rng, structkey, S=16, K=5, nslot=20, layout="shared"):
     """Seeded inputs of one fm item: (slots int32 [nslot, 2, 64], arr
-    int32 [S, K, 27], state int32 [K, 4]); instances share
-    destinations, padding slices carry the dead slot."""
-    dead = nslot - 1
+    int32 [S, K, 27], state int32 [K, 4]); destinations laid out as
+    ``filter.seeded_layout`` says (which may change nslot)."""
     arr = np.zeros((S, K, 27), np.int64)
-    arr[:, :, 0] = rng.integers(0, min(nslot - 1, 2 * K), (S, K))
-    off, frm, pad = seeded_slices(rng, S, K)
-    arr[:, :, 1] = off
-    arr[:, :, 2] = frm
-    arr[:, :, 0][pad] = dead
+    cols, arr[:, :, 1], arr[:, :, 2], nslot = seeded_layout(
+        rng, S, K, layout, nslot)
+    arr[:, :, 0] = cols[:, :, 2]
     for i in range(4):
         c = 3 + 6 * i
         arr[:, :, c] = rng.integers(-(1 << 31), 1 << 31, (S, K))

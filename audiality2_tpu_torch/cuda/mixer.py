@@ -622,10 +622,12 @@ class TorchMixer:
         if kind == "fm":
             if self._sine is None:
                 self._sine = self._t(FM.sine_pairs(), torch.int32)
-            FM.fm_call(slots, (key[3], key[4], key[5][0]), arr, state,
-                       self._sine)
+            sig = (key[3], key[4], key[5][0])
+            FM.fm_call(slots, sig, arr, state, self._sine,
+                       FM.groups(fl["arr"], sig))
         else:
-            FL.filter_call(slots, kind, key[3:8], arr, state)
+            FL.filter_call(slots, kind, key[3:8], arr, state,
+                           FL.groups(fl["arr"], key[3:8]))
         self._filt[key] = (state, list(cur))
 
     def dispatch(self, prog):

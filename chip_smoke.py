@@ -20,11 +20,15 @@ seconds:
 4. tail: the stage-tail kernels (fbdelay dense and legacy, filter12 /
    dcblock / limiter, fm) against their plain versions: on seeded
    tables for every variant (the CUDA entry point against the same
-   entry point on CPU copies, which takes the plain version), and on
-   the real items of the effects song's first superblock and of the
-   late fbdelay song's (the whole real tables, seeded slot contents;
-   the plain version on the card): 0 mismatches; times each kernel and
-   each plain version at that shape;
+   entry point on CPU copies, which takes the plain version; the
+   filter and fm tables in three slot layouts: slots shared by few
+   values, so that step groups break often; slots of their own; in
+   place over split fragments, whose disjoint windows keep one group;
+   and with K = 300), and on the real items of the effects
+   song's first superblock and of the late fbdelay song's (the whole
+   real tables, seeded slot contents; the plain version on the card):
+   0 mismatches; prints each real filter / fm item's group count;
+   times each kernel and each plain version at that shape;
 5. slice: the slice song (stereo, 44.1 kHz, 10 s, superblocks of
    2752x64 frames) through ``DeviceRenderer(device=DEVICE).render``
    against the native renderer, bit for bit, with no native bridging
@@ -291,7 +295,7 @@ def seeded_tail(rng):
             check(bad == 0, "fbdelay legacy %s C %d: %d mismatches"
                   % (form, C, bad))
             n, err = n + 1, max(err, e)
-    out["fbdelay_legacy"] = (n, err)
+    out["fbdelay_legacy"] = (n, err, None)
     n = err = 0
     for form in itertools.product((True, False), repeat=3):
         for F in (12, 40):
@@ -305,43 +309,60 @@ def seeded_tail(rng):
             check(bad == 0, "fbdelay dense %s F %d: %d mismatches"
                   % (form, F, bad))
             n, err = n + 1, max(err, e)
-    out["fbdelay_dense"] = (n, err)
-    n = err = 0
+    out["fbdelay_dense"] = (n, err, None)
+    # step groups: slots shared by few values (groups break often),
+    # conflict-free (one group spans the item), in-place instances over
+    # split fragments (disjoint windows of one slot: one group too);
     # K = 300 makes the block's threads take several instances each
-    for kind, (ni, no), add, SK in itertools.product(
+    n = err = 0
+    groups = {}
+    # the limiter's peak chains run in chunks from a guessed start and
+    # are repaired (seeded peaks far above their floor: long repairs);
+    # S = 200 gives its chunks several slices each
+    for kind, (ni, no), add, layout, SK in itertools.product(
             FL.KINDS, ((1, 1), (2, 2), (1, 2), (2, 1)), (True, False),
-            ((12, 6), (3, 300))):
+            FL.LAYOUTS, ((12, 6), (3, 300), (200, 1))):
         S, K = SK
+        if S == 200 and kind != "lim":
+            continue
         slots, arr, state = FL.seeded_item(rng, kind, ni, no, S, K,
-                                           nslot=2 * K + 8)
+                                           nslot=2 * K + 8, layout=layout)
         sig = (ni, no, add, (0, 1)[:ni] if ni == 2 else (1,),
                (1, 0) if no == 2 else (0,))
+        G = len(FL.groups(arr, sig)) - 1
+        check(layout == "shared" or G == 1, "a conflict-free filter "
+              "table (%s) cut into %d groups" % (layout, G))
+        groups.setdefault(layout, []).append(G)
         res = []
         for dev in (DEVICE, "cpu"):
             s, a, st = on(dev, slots, arr, state)
             FL.filter_call(s, kind, sig, a, st)
             res.append((s, st))
         bad, e = mismatches(zip(*res))
-        check(bad == 0, "filter %s %d->%d add %s K %d: %d mismatches"
-              % (kind, ni, no, add, K, bad))
+        check(bad == 0, "filter %s %d->%d add %s %s K %d: %d mismatches"
+              % (kind, ni, no, add, layout, K, bad))
         n, err = n + 1, max(err, e)
-    out["filter"] = (n, err)
+    out["filter"] = (n, err, groups)
     n = err = 0
+    groups = {}
     sine = {dev: on(dev, FM.sine_pairs())[0] for dev in (DEVICE, "cpu")}
-    for sk, add, SK in itertools.product(FM.STRUCTKEYS, (True, False),
-                                         ((8, 5), (2, 300))):
+    for sk, add, layout, SK in itertools.product(
+            FM.STRUCTKEYS, (True, False), FL.LAYOUTS, ((8, 5), (2, 300))):
         S, K = SK
-        slots, arr, state = FM.seeded_item(rng, sk, S, K, nslot=2 * K + 8)
+        slots, arr, state = FM.seeded_item(rng, sk, S, K, nslot=2 * K + 8,
+                                           layout=layout)
+        sig = (sk, add, 1 if add else 0)
+        groups.setdefault(layout, []).append(len(FM.groups(arr, sig)) - 1)
         res = []
         for dev in (DEVICE, "cpu"):
             s, a, st = on(dev, slots, arr, state)
-            FM.fm_call(s, (sk, add, 1 if add else 0), a, st, sine[dev])
+            FM.fm_call(s, sig, a, st, sine[dev])
             res.append((s, st))
         bad, e = mismatches(zip(*res))
-        check(bad == 0, "fm %d add %s K %d: %d mismatches"
-              % (sk, add, K, bad))
+        check(bad == 0, "fm %d add %s %s K %d: %d mismatches"
+              % (sk, add, layout, K, bad))
         n, err = n + 1, max(err, e)
-    out["fm"] = (n, err)
+    out["fm"] = (n, err, groups)
     return out
 
 
@@ -380,10 +401,11 @@ def real_tail(rng):
     prog, _, _ = first_program("effects", 2)
     slots0 = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FB.FRAG))
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
-               "max_err": 0, "items": []}
+               "max_err": 0, "items": [], "kinds": {}}
            for k in ("fbdelay_dense", "fbdelay_legacy", "filter", "fm")}
 
-    def add(name, note, ms, plain_ms, bad, err, nbytes, nops):
+    def add(name, note, ms, plain_ms, bad, err, nbytes, nops, kind=None,
+            groups=None):
         check(bad == 0, "%s kernel != plain on the real item %s: %d "
               "mismatches" % (name, note, bad))
         o = out[name]
@@ -392,8 +414,14 @@ def real_tail(rng):
         o["bytes"] += nbytes
         o["ops"] += nops
         o["max_err"] = max(o["max_err"], err)
-        o["items"].append("%s %.3f ms (plain %.1f ms)" % (note, ms,
-                                                          plain_ms))
+        o["items"].append("%s %.3f ms (plain %.1f ms)%s"
+                          % (note, ms, plain_ms, "" if groups is None
+                             else ", %d groups" % groups))
+        if kind is not None:
+            bms, by = bound(nbytes, nops)
+            o["kinds"][kind] = {"ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bms, "bound_by": by,
+                                "groups": groups, "shape": note}
 
     for fd in prog.fbdelays:
         check(fd["dense"], "the effects song's fbdelay is not dense")
@@ -427,23 +455,26 @@ def real_tail(rng):
             sine = on(DEVICE, FM.sine_pairs())[0]
             sig = (key[3], key[4], key[5][0])
 
-            def kernel(s, a, st):
-                return s, FM.fm_call(s, sig, a, st, sine)
+            def kernel(s, a, st, sig=sig, b=FM.groups(fl["arr"], sig)):
+                return s, FM.fm_call(s, sig, a, st, sine, b)
 
             def plain(s, a, st):
                 return s, FM.fm_torch(s, sig, a, st, sine)
             name = "fm"
             nbytes, nops = FM.work(fl["arr"], sig[0], sig[1])
+            bounds = FM.groups(fl["arr"], sig)
         else:
             sig = key[3:8]
 
-            def kernel(s, a, st, kind=kind, sig=sig):
-                return s, FL.filter_call(s, kind, sig, a, st)
+            def kernel(s, a, st, kind=kind, sig=sig,
+                       b=FL.groups(fl["arr"], sig)):
+                return s, FL.filter_call(s, kind, sig, a, st, b)
 
             def plain(s, a, st, kind=kind, sig=sig):
                 return s, FL.filter_torch(s, kind, sig, a, st)
             name = "filter"
             nbytes, nops = FL.work(fl["arr"], kind, *sig[:3])
+            bounds = FL.groups(fl["arr"], sig)
 
         def make(kind=kind, K=K, arr=arr):
             return (slots0.clone(), arr, FL.init_state(kind, K, DEVICE))
@@ -452,7 +483,8 @@ def real_tail(rng):
             lambda s, a, st: kernel(s, a, st),
             lambda s, a, st: plain(s, a, st), make)
         add(name, "%s S%d K%d" % (kind if kind != "fm" else "fm%d" % key[3],
-                                  S, K), ms, pms, bad, err, nbytes, nops)
+                                  S, K), ms, pms, bad, err, nbytes, nops,
+            kind, len(bounds) - 1)
 
     # the legacy form: the late fbdelay song's first mono superblock
     prog, _, _ = first_program("late_fbdelay", 1)
@@ -488,17 +520,27 @@ def phase_tail():
     recs = []
     notes = []
     for name, (src, fn, line) in sources.items():
-        nvar, serr = seeded[name]
+        nvar, serr, groups = seeded[name]
         o = real[name]
         check(o["items"], "no real %s item to check" % name)
+        extra = {}
+        if groups is not None:
+            extra["seeded_groups"] = {k: [min(v), max(v)]
+                                      for k, v in groups.items()}
+        if o["kinds"]:
+            extra["kinds"] = o["kinds"]
         recs.append(record(
             name, "audiality2_tpu_torch/cuda/csrc/" + src,
             "audiality2_tpu/tpu/superblock.py:%d" % line, o["ms"],
             o["plain_ms"], o["bytes"], o["ops"], max(serr, o["max_err"]),
             variants_checked=nvar, real_items=o["items"],
-            replaces_function=fn))
-        notes.append("%s: %d seeded variants, real %s"
-                     % (name, nvar, "; ".join(o["items"])))
+            replaces_function=fn, **extra))
+        notes.append("%s: %d seeded variants%s, real %s"
+                     % (name, nvar, "" if groups is None else
+                        " (groups per layout, min-max: %s)" % ", ".join(
+                            "%s %d-%d" % (k, min(v), max(v))
+                            for k, v in groups.items()),
+                        "; ".join(o["items"])))
     phase("tail", t0, "kernels equal to their plain versions (kernel and "
           "plain ms on the whole real items): %s" % " | ".join(notes))
     return recs
@@ -524,11 +566,14 @@ def render_check(song, channels, seconds, label, need):
     r = open_song(song, channels, DeviceRenderer, device=DEVICE)
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    FL.filter_call.kind_launches = dict.fromkeys(FL.KINDS, 0)
     t0 = time.perf_counter()
     out = r.render(frames, bufsize=SUPERBLOCK_FRAMES)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    launches.update(("filter_" + k, n)
+                    for k, n in FL.filter_call.kind_launches.items())
     fell_back = r.fell_back
     timings = dict(r.timings)
     r.close()
@@ -598,6 +643,11 @@ def main():
     paths["fbdelay_legacy"] = legacy
     for rec in kernels:
         rec["launches"] = paths[rec["name"]][rec["name"]]
+        for kind, k in rec.get("kinds", {}).items():
+            k["launches"] = effects.get("filter_" + kind,
+                                        effects[rec["name"]])
+    check(all(effects["filter_" + k] for k in FL.KINDS),
+          "effects: a filter kind never launched: %s" % json.dumps(effects))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,9 +24,9 @@ COPIES = [
     "objects/__init__.py", "objects/banks.py", "objects/handles.py",
     "objects/waves.py", "objects/streams.py",
     "units/__init__.py", "units/descriptors.py", "units/ramper.py",
-    "units/host_units.py",
+    "units/host_units.py", "units/deferred.py",
     "engine/__init__.py", "engine/state.py", "engine/core.py",
-    "engine/drivers.py", "engine/render.py",
+    "engine/drivers.py", "engine/render.py", "engine/midi.py",
 ]
 
 
@@ -84,6 +84,39 @@ for src in (SLICE_SONG, EFFECTS_SONG):
     r = open_(DeviceRenderer, src, device="cpu")
     got = r.render(4096)
     assert (got == want).all() and not r.fell_back and np.abs(got).max() > 0
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "audiality2_tpu")]
+assert not bad, bad
+print("ok")
+""")
+    assert out.strip().endswith("ok")
+
+
+def test_port_batched_engine_and_midi_without_jax():
+    """The default host engine (batched=True, rows on the host below
+    JAX_MIN_ROWS) renders, and the MIDI module parses a file, with
+    jax and audiality2_tpu blocked."""
+    out = _run_blocked(r"""
+import os, struct, tempfile
+import numpy as np
+import audiality2_tpu_torch as a2
+from audiality2_tpu_torch.engine.midi import parse_smf
+from audiality2_tpu_torch.songs import SLICE_SONG
+for use_jax in (True, False):
+    i = a2.open_engine(44100, 1024, 2, use_jax=use_jax)
+    s = i.get(i.load_string(SLICE_SONG, "s"), "Song")
+    out = []
+    i.sink_callback(lambda bufs, n: out.append(np.array(bufs[0][:n])))
+    i.timestamp_reset()
+    i.starta(i.root_voice(), s, [])
+    for _ in range(4):
+        i.run(1024)
+    assert np.abs(np.concatenate(out)).max() > 0
+track = (b"\x00\x90\x3c\x64" b"\x60\x80\x3c\x00" b"\x00\xff\x2f\x00")
+data = (b"MThd" + struct.pack(">IHHH", 6, 0, 1, 96) + b"MTrk"
+        + struct.pack(">I", len(track)) + track)
+p = os.path.join(tempfile.mkdtemp(), "t.mid")
+open(p, "wb").write(data)
+assert len(parse_smf(p)) == 2
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "audiality2_tpu")]
 assert not bad, bad
 print("ok")
