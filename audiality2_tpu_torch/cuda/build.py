@@ -13,11 +13,13 @@ library, all at once, and waits for them with a timeout; ``load`` returns a libr
 of them at its first call.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -31,6 +33,10 @@ SOURCES = ("osc_kernel", "fbdelay_kernel", "filter_kernel", "fm_kernel")
 
 build_log = {}               # source name -> nvcc output of its build
 _handles = {}                # source name -> loaded ctypes library
+# launch counting: the counts of the graph capture in progress on each
+# thread, and the lock around the wrappers' shared counts
+_capturing = threading.local()
+_count_lock = threading.Lock()
 
 
 def lib_path(name):
@@ -108,6 +114,41 @@ def launch_check(err, what):
     if err:
         raise RuntimeError("%s kernel launch failed: cudaError %d"
                            % (what, err))
+
+
+def count_launch(fn, kind=None):
+    """Counts one kernel launch of wrapper `fn` (and of its `kind`, for
+    a wrapper with ``kind_launches``): into the graph capture in progress
+    on this thread (``captured_launches``), else into the wrapper's
+    counts."""
+    counts = getattr(_capturing, "counts", None)
+    if counts is None:
+        add_launches({(fn, kind): 1})
+    else:
+        counts[(fn, kind)] = counts.get((fn, kind), 0) + 1
+
+
+def add_launches(counts):
+    """Adds {(wrapper, kind or None): launches} to the wrappers' counts
+    (a graph launch adds the launches captured in it)."""
+    with _count_lock:
+        for (fn, kind), n in counts.items():
+            fn.launches += n
+            if kind is not None:
+                fn.kind_launches[kind] += n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While a graph is captured on this thread (which launches nothing),
+    its kernel launches are counted into the dict that this yields, not
+    into the wrappers' counts; other threads count as before."""
+    prev = getattr(_capturing, "counts", None)
+    _capturing.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _capturing.counts = prev
 
 
 def check_tensor(t, what, name, dtype, shape, device):

@@ -74,8 +74,11 @@ struct Params {
     const int32_t* arr;      // [S, K, 13]
     void* state;             // f12/dcb int32 [K, 2, 2]; lim int64 [K]
     int32_t* scratch;        // [tmax, K, 2, 64]
-    const int32_t* bounds;   // [G + 1] step bounds of the groups
-    int G, tmax, K, no, add, sch0, sch1, dch0, dch1;
+    // [G, b0 .. bG]: the group count G, then the G + 1 step bounds
+    // of the groups (read on the card, so a captured launch takes
+    // each superblock's groups from memory)
+    const int32_t* bounds;
+    int tmax, K, no, add, sch0, sch1, dch0, dch1;
 };
 
 __device__ __forceinline__ const int32_t* src_row(const Params& p,
@@ -486,9 +489,11 @@ __device__ void limiter_tile(const Params& p, const int32_t* rows, int T) {
 template <int KIND, bool STEREO>
 __global__ void __launch_bounds__(THREADS, 1) filter_kernel(Params p) {
     const int dcol[2] = {2, 3}, dch[2] = {p.dch0, p.dch1};
-    for (int g = 0; g < p.G; ++g) {
-        const int g1 = p.bounds[g + 1];
-        for (int s0 = p.bounds[g]; s0 < g1; s0 += p.tmax) {
+    const int G = p.bounds[0];
+    const int32_t* b = p.bounds + 1;
+    for (int g = 0; g < G; ++g) {
+        const int g1 = b[g + 1];
+        for (int s0 = b[g]; s0 < g1; s0 += p.tmax) {
             const int T = min(p.tmax, g1 - s0);
             const int32_t* rows = p.arr + (size_t)s0 * p.K * NCOL;
             if (KIND == KIND_LIM) {
@@ -513,15 +518,15 @@ int launch(const Params& p, int ni, cudaStream_t stream) {
 
 }  // namespace
 
-// kind: 0 filter12, 1 dcblock, 2 limiter.  bounds: the G + 1 step
-// bounds of the item's groups; scratch [tmax, K, 2, 64].
+// kind: 0 filter12, 1 dcblock, 2 limiter.  bounds: the group count G
+// and the G + 1 step bounds of the item's groups, int32 [G + 2], on the
+// card; scratch [tmax, K, 2, 64].
 extern "C" int a2_filter(int32_t* slots, const int32_t* arr, void* state,
-                         int32_t* scratch, const int32_t* bounds, int G,
-                         int tmax, int K, int kind, int ni, int no,
-                         int add, int sch0, int sch1, int dch0, int dch1,
-                         cudaStream_t stream) {
-    Params p{slots, arr, state, scratch, bounds, G, tmax, K, no, add,
-             sch0, sch1, dch0, dch1};
+                         int32_t* scratch, const int32_t* bounds, int tmax,
+                         int K, int kind, int ni, int no, int add, int sch0,
+                         int sch1, int dch0, int dch1, cudaStream_t stream) {
+    Params p{slots, arr, state, scratch, bounds, tmax, K, no, add, sch0,
+             sch1, dch0, dch1};
     if (kind == KIND_F12) return launch<KIND_F12>(p, ni, stream);
     if (kind == KIND_DCB) return launch<KIND_DCB>(p, ni, stream);
     if (kind == KIND_LIM) return launch<KIND_LIM>(p, ni, stream);

@@ -61,8 +61,11 @@ struct Params {
     int32_t* state;          // [K, 4] per-op last output
     const int32_t* sine;     // [2048] paired sine table
     int32_t* scratch;        // [tmax, K, 64]
-    const int32_t* bounds;   // [G + 1] step bounds of the groups
-    int G, tmax, K, add, dch;
+    // [G, b0 .. bG]: the group count G, then the G + 1 step bounds
+    // of the groups (read on the card, so a captured launch takes
+    // each superblock's groups from memory)
+    const int32_t* bounds;
+    int tmax, K, add, dch;
 };
 
 // fm.c fm_osc: one operator step; updates the op's last output `cand`
@@ -189,9 +192,11 @@ __global__ void __launch_bounds__(THREADS, 1) fm_kernel(Params p) {
     for (int i = threadIdx.x; i < SINE_N; i += THREADS) sine[i] = p.sine[i];
     __syncthreads();
     const int dcol[2] = {0, 0}, dch[2] = {p.dch, p.dch};
-    for (int g = 0; g < p.G; ++g) {
-        const int g1 = p.bounds[g + 1];
-        for (int s0 = p.bounds[g]; s0 < g1; s0 += p.tmax) {
+    const int G = p.bounds[0];
+    const int32_t* b = p.bounds + 1;
+    for (int g = 0; g < G; ++g) {
+        const int g1 = b[g + 1];
+        for (int s0 = b[g]; s0 < g1; s0 += p.tmax) {
             const int T = min(p.tmax, g1 - s0);
             const int32_t* rows = p.arr + (size_t)s0 * p.K * NCOL;
             for (int k = spread_tid(); k < p.K; k += grid_threads())
@@ -212,14 +217,13 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // structkey: nops in bits 8-11, parallel in bits 4-7, osbits in bits 1-3
 // (the eight structures the native record emits, fm1 ... fm4r)
-// bounds: the G + 1 step bounds of the item's groups; scratch
-// [tmax, K, 64].
+// bounds: the group count G and the G + 1 step bounds of the item's
+// groups, int32 [G + 2], on the card; scratch [tmax, K, 64].
 extern "C" int a2_fm(int32_t* slots, const int32_t* arr, int32_t* state,
                      const int32_t* sine, int32_t* scratch,
-                     const int32_t* bounds, int G, int tmax, int K,
-                     int structkey, int add, int dch, cudaStream_t stream) {
-    Params p{slots, arr, state, sine, scratch, bounds, G, tmax, K, add,
-             dch};
+                     const int32_t* bounds, int tmax, int K, int structkey,
+                     int add, int dch, cudaStream_t stream) {
+    Params p{slots, arr, state, sine, scratch, bounds, tmax, K, add, dch};
     switch (structkey) {
     case 256: return launch<1, 0, 0>(p, stream);
     case 514: return launch<2, 0, 1>(p, stream);

@@ -132,7 +132,7 @@ def fbd_legacy_call(x, arr, starts, ring, C):
                                 ofb.data_ptr(), wbuf.data_ptr(), NS, C,
                                 stream)
     build.launch_check(err, "fbdelay legacy")
-    fbd_legacy_call.launches += 1
+    build.count_launch(fbd_legacy_call)
     return ofb
 
 
@@ -166,7 +166,7 @@ def fbd_dense_call(x, g, buf, fb, C):
         err = lib.a2_fbd_dense(x.data_ptr(), g.data_ptr(), buf.data_ptr(),
                                ofb.data_ptr(), npad, CH, fb, stream)
     build.launch_check(err, "fbdelay dense")
-    fbd_dense_call.launches += 1
+    build.count_launch(fbd_dense_call)
     return ofb
 
 

@@ -10,7 +10,9 @@ state is ``[K, 2, 2]`` int32 (d1, d2 per channel) for filter12 and
 dcblock and ``[K]`` int64 (the unsigned 32-bit peak) for the limiter.
 
 ``filter_call`` runs the kernel in ``csrc/filter_kernel.cu`` for CUDA
-tensors, one step group (``stage_groups.py``) at a time, and
+tensors, one step group (``stage_groups.py``) at a time (the groups
+reach the kernel as a packed int32 table on the card, ``pack_bounds``,
+so a CUDA graph can capture the launch), and
 ``filter_torch`` (a loop over slices and samples on [K] tensors, int64
 carrying int32 wrap, step by step) for CPU tensors.  Unlike the pure
 JAX function both update ``slots`` and ``state`` in place.
@@ -186,7 +188,7 @@ def _bind(lib):
     lib.a2_filter.argtypes = (
         [ctypes.c_void_p] * 5                  # slots arr state scratch
         #                                        bounds
-        + [ctypes.c_int] * 11                  # G tmax K kind ni no add
+        + [ctypes.c_int] * 10                  # tmax K kind ni no add
         #                                        sch0 sch1 dch0 dch1
         + [ctypes.c_void_p])                   # stream
 
@@ -204,11 +206,41 @@ def groups(arr, sig):
     return step_groups(arr, (0, 1)[:ni], (2, 3)[:no], 4, add)
 
 
-def tile_steps(bounds, K):
-    """Steps per tile: the longest group, at most SCRATCH_PAIRS // K
-    (at least 1)."""
-    return int(max(1, min(np.diff(bounds).max(initial=1),
-                          SCRATCH_PAIRS // K)))
+def tile_steps(S, K):
+    """Steps per tile of an item of S steps and K instances: at most
+    SCRATCH_PAIRS // K (at least 1).  A group longer than that runs in
+    several tiles; any cut of a group is a group too."""
+    return int(max(1, min(S, SCRATCH_PAIRS // K)))
+
+
+def pack_bounds(bounds, S):
+    """The kernels' step-group table, int32 [S + 2]: the group count G,
+    then the G + 1 step bounds (``groups``), then zeros.  Its size
+    depends on S alone, so a captured launch reads each superblock's
+    groups from the same buffer."""
+    b = np.asarray(bounds, np.int32)
+    check_bounds(b, S, "pack_bounds")
+    out = np.zeros(S + 2, np.int32)
+    out[0] = len(b) - 1
+    out[1:len(b) + 1] = b
+    return out
+
+
+def device_bounds(bounds, arr, sig, groups_of, what):
+    """The packed step-group table on arr's device: ``bounds`` as given
+    when it is a tensor there already (``pack_bounds`` layout, written
+    by the caller), else packed from host step bounds (computed from a
+    host copy of arr when None)."""
+    S = arr.shape[0]
+    if isinstance(bounds, torch.Tensor):
+        if bounds.device != arr.device or bounds.dtype != torch.int32 \
+                or bounds.numel() < S + 2:
+            raise ValueError("%s: packed bounds must be int32 [S + 2] on "
+                             "%s" % (what, arr.device))
+        return bounds
+    if bounds is None:
+        bounds = groups_of(arr.cpu().numpy(), sig)
+    return torch.as_tensor(pack_bounds(bounds, S), device=arr.device)
 
 
 def filter_call(slots, kind, sig, arr, state, bounds=None):
@@ -216,9 +248,11 @@ def filter_call(slots, kind, sig, arr, state, bounds=None):
     plain version for CPU tensors, the kernel for CUDA tensors
     (``filter_call.launches`` counts its launches, and
     ``filter_call.kind_launches`` by kind), which runs the
-    item's step groups ``bounds`` (``groups``; computed from a host
-    copy of arr when not given).  Updates slots and state in place;
-    returns state."""
+    item's step groups ``bounds``: host step bounds (``groups``;
+    computed from a host copy of arr when not given), or the packed
+    table (``pack_bounds``) as an int32 tensor on the card, which a
+    CUDA graph can capture.  Updates slots and state in place; returns
+    state."""
     if slots.device.type == "cpu":
         return filter_torch(slots, kind, sig, arr, state)
     ni, no, add, sch, dch = sig
@@ -239,24 +273,20 @@ def filter_call(slots, kind, sig, arr, state, bounds=None):
                            dev)
     if S == 0 or K == 0:
         return state
-    if bounds is None:
-        bounds = groups(arr.cpu().numpy(), sig)
-    check_bounds(bounds, S, what)
-    tmax = tile_steps(bounds, K)
+    bt = device_bounds(bounds, arr, sig, groups, what)
+    tmax = tile_steps(S, K)
     scratch = torch.empty((tmax, K, 2, FRAG), dtype=torch.int32,
                           device=dev)
-    bt = torch.as_tensor(bounds, dtype=torch.int32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.a2_filter(slots.data_ptr(), arr.data_ptr(),
                             state.data_ptr(), scratch.data_ptr(),
-                            bt.data_ptr(), len(bounds) - 1, tmax, K,
+                            bt.data_ptr(), tmax, K,
                             KINDS.index(kind), ni, no, int(bool(add)),
                             sch[0], sch[-1], dch[0], dch[-1], stream)
     build.launch_check(err, "filter")
-    filter_call.launches += 1
-    filter_call.kind_launches[kind] += 1
+    build.count_launch(filter_call, kind)
     return state
 
 

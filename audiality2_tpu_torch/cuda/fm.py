@@ -28,7 +28,7 @@ import torch
 from ..constants import A2_MAXFRAG
 from ..units.host_units import _fm_sine
 from . import build
-from .filter import (active_samples, check_bounds, sample_windows,
+from .filter import (active_samples, device_bounds, sample_windows,
                      seeded_layout, tile_steps)
 from .stage_groups import step_groups
 from .osc_kernel import _w
@@ -140,7 +140,7 @@ def _bind(lib):
     lib.a2_fm.argtypes = (
         [ctypes.c_void_p] * 6                  # slots arr state sine scratch
         #                                        bounds
-        + [ctypes.c_int] * 6                   # G tmax K structkey add dch
+        + [ctypes.c_int] * 5                   # tmax K structkey add dch
         + [ctypes.c_void_p])                   # stream
 
 
@@ -158,8 +158,9 @@ def groups(arr, sig):
 def fm_call(slots, sig, arr, state, sine, bounds=None):
     """One fm item (see fm_torch): the plain version for CPU tensors,
     the kernel for CUDA tensors (``fm_call.launches`` counts its
-    launches), which runs the item's step groups ``bounds``
-    (``groups``; computed from a host copy of arr when not given).
+    launches), which runs the item's step groups ``bounds`` (host step
+    bounds, computed from a host copy of arr when not given, or the
+    packed table on the card, as ``filter.filter_call`` takes them).
     Updates slots and state in place; returns state."""
     if slots.device.type == "cpu":
         return fm_torch(slots, sig, arr, state, sine)
@@ -178,21 +179,18 @@ def fm_call(slots, sig, arr, state, sine, bounds=None):
     build.check_tensor(sine, what, "sine", torch.int32, (2048,), dev)
     if S == 0 or K == 0:
         return state
-    if bounds is None:
-        bounds = groups(arr.cpu().numpy(), sig)
-    check_bounds(bounds, S, what)
-    tmax = tile_steps(bounds, K)
+    bt = device_bounds(bounds, arr, sig, groups, what)
+    tmax = tile_steps(S, K)
     scratch = torch.empty((tmax, K, FRAG), dtype=torch.int32, device=dev)
-    bt = torch.as_tensor(bounds, dtype=torch.int32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.a2_fm(slots.data_ptr(), arr.data_ptr(), state.data_ptr(),
                         sine.data_ptr(), scratch.data_ptr(), bt.data_ptr(),
-                        len(bounds) - 1, tmax, K, structkey,
+                        tmax, K, structkey,
                         int(bool(add)), dch, stream)
     build.launch_check(err, "fm")
-    fm_call.launches += 1
+    build.count_launch(fm_call)
     return state
 
 

@@ -1,22 +1,24 @@
-"""TorchMixer: runs a SuperblockProgram in PyTorch.
+"""TorchMixer: runs SuperblockPrograms in PyTorch, on the card through
+CUDA graphs.
 
-Counterpart of the JAX package's ``DeviceMixer._build_inner``
-(``audiality2_tpu/tpu/superblock.py:3638``):
+Counterpart of the JAX package's ``DeviceMixer``
+(``audiality2_tpu/tpu/superblock.py:3033``).  One superblock body
+(``TorchMixer._body``, the JAX mixer's ``_build_inner``):
 
-  runs --(_expand_rows: run -> row expansion, ramp replay)--> rows
+  runs --(_row_params: run -> row expansion, ramp replay)--> rows
   rows --(osc_call per pass class; noise/dc rows in torch)--> audio
   audio, stash --(int32 segment sums)--> slots[ninst*F+1, 2, 64]
   slots --(stage tail: panmix/copy/waveshaper stages, fbdelay,
            filter12/dcblock/limiter, fm, in record order)--> slots
   slots --> master slice [F, channels, 64]
 
-The stage tail's serial recurrences run as CUDA kernels
-(``fbdelay.py``, ``filter.py``, ``fm.py``); their state (fbdelay
-rings, filter and fm state) persists on the mixer from one superblock
-to the next, as in the JAX mixer.  The mixer takes the program as the
-builder made it: eager PyTorch needs none of the JAX mixer's shape
-padding, and that padding changes no number.  Slots are updated in
-place where the JAX functions return new arrays.
+The body reads every table from one int32 upload blob laid out by the
+program's signature (``blob_layout``) and advances the persistent
+state (fbdelay rings, filter and fm state) in place in static buffers,
+so that a ``torch.cuda.CUDAGraph`` per signature captures it: the host
+work of a superblock (``_prepare``) is numpy, one pinned upload and
+one graph launch.  The stage tail's serial recurrences run as CUDA
+kernels (``fbdelay.py``, ``filter.py``, ``fm.py``).
 
 Integer semantics follow the reference exactly: int32 audio with
 wrap, int64 where the reference computes in int64, arithmetic right
@@ -24,16 +26,22 @@ shifts, C truncating division (``torch.div(..., rounding_mode=
 "trunc")``) where the JAX code uses its f32-estimate ``_tdiv``.
 """
 
+import contextlib
+import threading
+import time
+
 import numpy as np
 import torch
 
 from ..constants import A2_MAXFRAG
+from . import build
 from . import fbdelay as FB
 from . import filter as FL
 from . import fm as FM
 from . import osc_kernel as OK
 from .osc_kernel import _w
 from .superblock import (
+    ALL_CLASSES, BASE_N, RR_N, _FILT_DEAD, _FILT_W, _pow2, _quant,
     RC_START, RC_LEN, RC_DPH, RC_SIZE, RC_POSOFF, RC_AMP0,
     RC_DAMP, RC_VOL0, RC_DVOL, RC_PAN0, RC_DPAN, RC_SLOT, RC_MODE, RC_OFF,
     RC_TOTAL, RC_PHHI, RC_PHLO, RC_RIDX, RR_MIP, RR_AT, RR_ATMR, RR_VT,
@@ -372,60 +380,657 @@ def stage_items(prog):
     return [t[:3] for t in items]
 
 
-class TorchMixer:
-    """Executes SuperblockPrograms with PyTorch on ``device``; the
-    oscillator runs through ``osc_kernel.osc_call`` (the CUDA kernel
-    for CUDA tensors, its plain version on the CPU).  Holds the
-    device copy of the renderer's pair atlas."""
+FLOAT_TIER_MSG = ("stage_mode='float' is not ported yet: the float stage "
+                  "tier is ROADMAP.md section 1, item 'Float stage tier'")
+# the JAX mixer's float-tier eligibility threshold on a filter12 class's
+# lowest q (a signature element; the exact tier ignores it)
+_FLOAT_TIER_MINQ = int(0.15 * (1 << 24))
+_FILT_INIT = {"lim": FL.LIM_PEAK0, "fm": 0, "f12": 0, "dcb": 0}
+# one process-wide lock around graph capture: the caching allocator's
+# capture pools and the relaxed capture mode are per capturing thread
+_CAPTURE_LOCK = threading.Lock()
 
-    def __init__(self, core, device="cuda", readback="exact", quality=0):
-        self.core = core
-        self.device = torch.device(device)
+
+_DEVICE_CTX = {}
+_DEVICE_CTX_LOCK = threading.Lock()
+
+
+def _device_context(device):
+    """The streams and the graph memory pool that every mixer on one card
+    shares: (compute, upload, capture stream, pool).  All graphs run one
+    at a time on the one compute stream, and nothing a body allocates
+    outlives it (its results go to static buffers), so the graphs'
+    intermediates may share one pool.  A one-node anchor graph holds the
+    pool, so that its memory outlives any one renderer's graphs and a
+    new mixer's first capture finds it allocated."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _DEVICE_CTX_LOCK:
+        ctx = _DEVICE_CTX.get(idx)
+        if ctx is None:
+            dev = torch.device("cuda", idx)
+            cs, us, gs = (torch.cuda.Stream(dev) for _ in range(3))
+            pool = torch.cuda.graph_pool_handle()
+            anchor = torch.cuda.CUDAGraph()
+            x = torch.zeros(1, dtype=torch.int32, device=dev)
+            gs.wait_stream(torch.cuda.current_stream(dev))
+            with _CAPTURE_LOCK, torch.cuda.stream(gs):
+                anchor.capture_begin(pool=pool,
+                                     capture_error_mode="relaxed")
+                try:
+                    x.add_(1)
+                finally:
+                    anchor.capture_end()
+            ctx = (cs, us, gs, pool, (anchor, x))
+            _DEVICE_CTX[idx] = ctx
+        return ctx[:4]
+
+
+def blob_layout(sig):
+    """Static layout of one superblock's upload: name -> (offset, shape)
+    over one flat int32 array, and its size, from the signature alone
+    (so the host fill and the body's views always agree).  The JAX
+    mixer's ``_blob_layout`` without its packed format, plus each filter
+    / fm item's step-group table ``("fgrp", j)`` (``filter.pack_bounds``,
+    [S + 2])."""
+    (F, ninst, minst, mch, rows_sig, rpad, ns, nsm, ramppad,
+     readback, quality, items, rmq) = sig
+    ent = []
+    for i, (cls, NB) in enumerate(rows_sig):
+        ent.append((("tbase", i), (NB,)))
+    if rpad:
+        ent.append(("rm", (rpad, BASE_N)))
+    if ramppad:
+        ent.append(("rmp", (ramppad, RR_N)))
+    if ns:
+        ent.append(("sa", (ns, 2, FRAG)))
+        ent.append(("sas", (ns,)))
+    if nsm:
+        ent.append(("sm", (nsm, FRAG)))
+        ent.append(("sms", (nsm,)))
+    nfbd = 0
+    nperm = 0
+    for j, (tag, key, extra) in enumerate(items):
+        if tag == "stage":
+            K, G = extra
+            if K:
+                ent.append((("it", j), (K, 9)))
+            if G:
+                ent.append((("itd", j), (G, F, 9)))
+        elif tag == "fbd":
+            ent.append((("it", j), (extra[0], 13)))
+            nfbd += 1
+        else:
+            S, K = extra[0], extra[1]
+            ent.append((("it", j), (S, K, _FILT_W[key[2]])))
+            ent.append((("fgrp", j), (S + 2,)))
+            nperm += K
+    if nfbd:
+        ent.append(("fbdpos", (nfbd,)))
+    if nperm:
+        ent.append(("fperm", (nperm,)))
+    layout = {}
+    pos = 0
+    for name, shape in ent:
+        layout[name] = (pos, shape)
+        pos += int(np.prod(shape, dtype=np.int64))
+    return layout, max(pos, 1)
+
+
+class _StateSet:
+    """The persistent state that one superblock body reads and advances
+    in place: an fbdelay ring per fbdelay item and a state array per
+    filter / fm item, in the signature's item order.  Each buffer
+    remembers the id of the stream state it holds (``owner``): the
+    mixer binds a stream's state by pointing its entry at the buffer,
+    copying it in (and the previous holder's out) only when another
+    stream's state sits there."""
+
+    def __init__(self, sig, device):
+        self.rings = []
+        self.filt = []
+        for tag, key, extra in sig[11]:
+            if tag == "fbd":
+                n = FB.FBD_TAIL if extra[5] else FB.FBD_BUFSIZE
+                self.rings.append(torch.zeros((2, n), dtype=torch.int32,
+                                              device=device))
+            elif tag == "filt":
+                self.filt.append(FL.init_state(key[2], extra[1], device))
+        self.owners = {"ring": [None] * len(self.rings),
+                       "filt": [None] * len(self.filt)}
+
+
+class _Entry:
+    """One dispatch unit: the static buffers of n superblock bodies (one
+    device blob holding their uploads, the views of each, their state
+    sets and masters) and, on the card, the CUDA graph that runs them
+    all in one launch.  chain: the bodies share one state set
+    (consecutive superblocks of one stream); otherwise each has its
+    own (state-disjoint streams)."""
+
+    def __init__(self, mixer, sigs, chain):
+        dev = mixer.device
+        self.sigs = sigs
+        self.layouts = []
+        self.offs = []
+        total = 0
+        for sig in sigs:
+            lay, n = blob_layout(sig)
+            self.layouts.append(lay)
+            self.offs.append((total, n))
+            total += n
+        self.total = total
+        self.blob = torch.zeros(total, dtype=torch.int32, device=dev)
+        self.views = []
+        for lay, (o, n) in zip(self.layouts, self.offs):
+            v = {}
+            for name, (pos, shape) in lay.items():
+                size = int(np.prod(shape, dtype=np.int64))
+                v[name] = self.blob[o + pos:o + pos + size].view(shape)
+            self.views.append(v)
+        if chain:
+            st = _StateSet(sigs[0], dev)
+            self.states = [st] * len(sigs)
+        else:
+            self.states = [_StateSet(sig, dev) for sig in sigs]
+        self.masters = [
+            torch.zeros((sig[0], sig[3], FRAG),
+                        dtype=torch.int16 if sig[9] == "i16"
+                        else torch.int32, device=dev) for sig in sigs]
+        # what the captured graph reads besides its own buffers: kept
+        # alive with it, and the atlas version it was captured against
+        self.refs = (mixer._atlas_dev, mixer._sine, mixer._ptabs)
+        self.atlas_ver = mixer._atlas_ver
+        self.graph = None
+        # (kernel wrapper, kind) -> launches per run of the graph
+        self.launches = {}
+        if dev.type == "cuda":
+            # two pinned staging blobs, used in turn: the host fills one
+            # while the other's upload may still be in flight
+            self.stage = [torch.empty(total, dtype=torch.int32,
+                                      pin_memory=True) for _ in range(2)]
+            self.stage_ev = [None, None]
+            self.k = 0
+            # recorded after each run: the next upload into the device
+            # blob waits for it
+            self.free_ev = torch.cuda.Event()
+            self.free_ev.record(mixer._cstream)
+
+    def run(self, mixer):
+        for sig, v, st, m in zip(self.sigs, self.views, self.states,
+                                 self.masters):
+            mixer._body(sig, v, st, m)
+
+
+class TorchMixer:
+    """Executes SuperblockPrograms with PyTorch on ``device``, as the
+    JAX package's ``DeviceMixer`` does on the TPU: every program is
+    padded to its stream's high-water shapes (``_repad``; ``observe``
+    pins them in a profile pass) and keyed by ``_signature``.  Per
+    signature the mixer holds static device buffers (the upload blob,
+    the persistent state, the master) and, on the card, one
+    ``torch.cuda.CUDAGraph`` of the superblock body (``_fns``: signature
+    -> entry), captured by ``precompile`` or by the signature's second
+    dispatch (the first runs the body eagerly); ``dispatch_chain`` /
+    ``dispatch_many`` run several superblocks in one graph launch.  ``_prepare`` does all host work
+    (padding, the numpy tables, step groups, the dense flags, the filter
+    lane permutation) and writes one pinned blob, uploaded
+    asynchronously on an upload stream; the body reads everything from
+    device buffers.  On the CPU the same bodies run eagerly.
+
+    The oscillator runs through ``osc_kernel.osc_call``, the stage tail
+    through the fbdelay / filter / fm wrappers (the CUDA kernels for
+    CUDA tensors, their plain versions on the CPU).  Persistent state is
+    keyed per stream as in the JAX mixer: fbdelay rings by unit id,
+    which ``DeviceRenderer._tag_prog`` makes ``(ns, unit_id)`` on a
+    shared mixer, filter / fm state by ``(ns, key)``.  A wrapper's
+    ``.launches`` grows at each graph launch by the kernel launches
+    captured in it."""
+
+    def __init__(self, core, device="cuda", readback="exact", quality=0,
+                 transfer_lock=None, stage_mode="exact"):
+        if stage_mode == "float":
+            raise ValueError(FLOAT_TIER_MSG)
+        if stage_mode != "exact":
+            raise ValueError("stage_mode must be 'exact' (or 'float', not "
+                             "ported yet)")
         if readback not in ("exact", "i16"):
             raise ValueError("readback must be 'exact' or 'i16'")
+        self.core = core
+        self.device = torch.device(device)
         self.readback = readback
         self.quality = quality
+        self.stage_mode = stage_mode
+        self.transfer_lock = transfer_lock
         self._atlas_dev = None
         self._atlas_ver = -1
-        self._ptabs = (torch.as_tensor(_PTAB_BASE, device=self.device),
-                       torch.as_tensor(_PTAB_COEFF, device=self.device))
-        self._rings = {}         # unit id -> [ring, ring position]
-        self._fbd_dense = {}     # unit id -> sticky dense flag
-        self._fbd_par = {}       # unit id -> (fb, ld, rd) of the dense form
-        self._filt = {}          # item key -> (state, serials)
+        self._ptabs = None
         self._sine = None
+        self._cstream = self._ustream = self._gstream = None
+        self._rings = {}         # unit id -> [ring, ring position]
+        self._filt = {}          # (ns, item key) -> [state, serials]
+        self._fns = {}           # signature -> _Entry
+        self._chain_fns = {}     # ("chain", sig, n) / ("many", sigs)
+        # per-namespace shape padding (prog.ns; 0 for solo renders), as
+        # in the JAX mixer
+        self._hw = {}            # ns -> {key -> high-water}
+        self._union_stages = {}  # ns -> {stage key -> template}
+        self._union_fbd = {}     # ns -> {unit_id -> template dict}
+        self._union_filters = {}  # ns -> {filter class key -> {S,K}}
+        self._fine = False       # exact-fit padding (observe())
+        self._pinned = {}        # (shape, dtype) -> free pinned buffers
+        self._pin_lock = threading.Lock()
+        self._pool = None        # the graphs' shared memory pool
+        self.captures = 0        # graphs captured
+        self.capture_s = 0.0     # host seconds spent capturing
+        self.capture_log = []
+        self.replays = 0         # graph launches
+        # time_device: each graph launch is bracketed by timing events,
+        # read by device_seconds()
+        self.time_device = False
+        self._dev_events = []
+
+    @property
+    def _fbd_dense(self):
+        """The sticky dense flag of every fbdelay instance seen: unit
+        id -> bool (``_repad`` keeps it per namespace)."""
+        out = {}
+        for hw in self._hw.values():
+            for k, v in hw.items():
+                if isinstance(k, tuple) and k[0] == "fbdense":
+                    out[k[1]] = bool(v)
+        return out
+
+    # ---- static device data ----
 
     def device_atlas(self):
         """The pair atlas on the mixer's device (uploaded again when
         the atlas grows)."""
         pa = self.core._pair_atlas
-        if pa.data is None:
-            pa.finalize()
-        if pa.version != self._atlas_ver:
-            self._atlas_dev = torch.as_tensor(pa.data, dtype=torch.int32,
-                                              device=self.device)
-            self._atlas_ver = pa.version
+        with pa.lock:
+            if pa.data is None:
+                pa.finalize()
+            if pa.version != self._atlas_ver:
+                self._atlas_dev = torch.as_tensor(pa.data,
+                                                  dtype=torch.int32,
+                                                  device=self.device)
+                self._atlas_ver = pa.version
         return self._atlas_dev
+
+    def _ensure_static(self):
+        """On the card the shared streams; then, on the compute stream,
+        the tables every body reads (pitch tables, fm sine pairs, the
+        atlas)."""
+        if self.device.type == "cuda" and self._cstream is None:
+            (self._cstream, self._ustream, self._gstream,
+             self._pool) = _device_context(self.device)
+        with self._stream():
+            if self._ptabs is None:
+                self._ptabs = (
+                    torch.as_tensor(_PTAB_BASE, device=self.device),
+                    torch.as_tensor(_PTAB_COEFF, device=self.device))
+                self._sine = torch.as_tensor(FM.sine_pairs(),
+                                             dtype=torch.int32,
+                                             device=self.device)
+            self.device_atlas()
+
+    def _stream(self):
+        """Context: the mixer's compute stream on the card."""
+        if self._cstream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._cstream)
 
     def _t(self, a, dtype=torch.int64):
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device) \
             .to(dtype)
 
-    def row_params(self, prog):
-        """Run -> row expansion (the JAX mixer's ``_expand_rows`` up to
-        its kernel calls).  Returns (classes, slot_r, mono) where
-        classes lists (pass_class, tbase int32 [NB], params int32
-        [NPARAM, NB*RPB] or the class-0 inputs dict) in row order,
-        and slot_r is each row's int64 slot index."""
-        F = prog.F
-        dead_slot = prog.ninst * F
-        dev = self.device
-        rm = self._t(prog.runmat)
-        Rtot = sum(NB * OK.RPB for _, NB, _ in prog.class_blocks)
-        mono = not bool((prog.runmat[:, RC_MODE] & _ROW_STEREO).any())
-        if prog.stash_audio is not None and len(prog.stash_audio):
-            mono = mono and not prog.stash_audio[:, 1].any()
+    # ---- profile pass and shape padding (the JAX mixer's) ----
 
+    def observe(self, prog):
+        """Profile pass: folds this program's shapes into the high-water
+        marks and the stage-structure union without dispatching
+        anything.  After observing every superblock of a song, all its
+        real dispatches share one signature (one graph capture), and
+        the padding steps are fine (``_quant``) instead of pow2."""
+        self._fine = True
+        self._repad(prog)
+        ns = getattr(prog, "ns", 0)
+        ust = self._union_stages.setdefault(ns, {})
+        ufb = self._union_fbd.setdefault(ns, {})
+        ufl = self._union_filters.setdefault(ns, {})
+        for st in prog.stages:
+            t = ust.get(st["key"]) or {"K": 0, "G": 0}
+            ust[st["key"]] = {
+                "K": max(t["K"], st["arr"].shape[0]),
+                "G": max(t["G"], st["dense"].shape[0])}
+        for fd in prog.fbdelays:
+            ufb[fd["unit_id"]] = {
+                "key": fd["key"], "stereoin": fd["stereoin"],
+                "stereoout": fd["stereoout"], "add": fd["add"],
+                "chunk": fd["chunk"], "ns": fd["arr"].shape[0]}
+        for fl in prog.filters:
+            old = ufl.get(fl["key"])
+            ufl[fl["key"]] = {
+                "S": fl["arr"].shape[0], "K": fl["arr"].shape[1],
+                "minq": min(fl.get("minq", 1 << 30),
+                            old["minq"] if old else 1 << 30)}
+
+    def _repad(self, prog):
+        """Pads every variable-size array up to its stream's high-water
+        mark, so that steady-state superblocks share one signature (the
+        JAX mixer's ``_repad``, line for line).  Padding changes no
+        number: padded runs, rows, slices and stash patches are dead."""
+        ns = getattr(prog, "ns", 0)
+        hw = self._hw.setdefault(ns, {})
+
+        def grow(key, n):
+            m = max(hw.get(key, 0), n)
+            hw[key] = m
+            return m
+
+        # padding instances are never read (all real slots index inst <
+        # the build-time count)
+        prog.ninst = grow("ninst", prog.ninst)
+        # sticky ramp-replay flag
+        prog.has_ramp = bool(grow("has_ramp",
+                                  int(getattr(prog, "has_ramp", False))))
+        # sticky stereo-rows flag: a song none of whose rows (nor stash
+        # patches) is stereo expands its rows in mono
+        st = 0
+        if prog.runmat is not None and prog.runmat.shape[0]:
+            st = int(bool((prog.runmat[:, RC_MODE] & _ROW_STEREO).any()))
+        if not st and getattr(prog, "stash_audio", None) is not None \
+                and prog.stash_audio.shape[0]:
+            st = int(bool(prog.stash_audio[:, 1].any()))
+        prog.rows_stereo = bool(grow("rows_stereo", st))
+        dead = prog.ninst * prog.F
+
+        # oscillator runs: monotone class-block growth; growing a class
+        # shifts the bases of later classes, so run starts are remapped
+        if prog.runmat is not None:
+            old_ends = []
+            shift = []
+            ob = nb = 0
+            blocks = []
+            for cls, NB, tb in prog.class_blocks:
+                NBp = grow(("cls", cls), _quant(NB, 8)
+                           if self._fine else _pow2(max(NB, 1), 8))
+                shift.append(nb - ob)
+                ob += NB * OK.RPB
+                old_ends.append(ob)
+                nb += NBp * OK.RPB
+                if NBp > NB:
+                    tb = np.concatenate([tb, np.zeros(NBp - NB, np.int32)])
+                blocks.append((cls, NBp, tb))
+            prog.class_blocks = blocks
+            shift.append(nb - ob)        # dead-run sentinel (== Rtot)
+            starts = prog.runmat[:, RC_START].astype(np.int64)
+            if nb != ob:
+                ci = np.searchsorted(np.asarray(old_ends), starts,
+                                     side="right")
+                prog.runmat[:, RC_START] = (
+                    starts + np.asarray(shift, np.int64)[ci]) \
+                    .astype(np.int32)
+            prog.Rtot = nb
+            Nr = prog.runmat.shape[0]
+            Nrp = grow("runs", _quant(Nr, 2048)
+                       if self._fine else _pow2(max(Nr, 1), 1024))
+            if Nrp > Nr:
+                m = np.zeros((Nrp, BASE_N), np.int32)
+                m[:, RC_START] = prog.Rtot
+                m[:, RC_RIDX] = -1
+                m[:Nr] = prog.runmat
+                prog.runmat = m
+            if prog.has_ramp or hw.get("rampruns", 0):
+                NrR = prog.rampmat.shape[0]
+                NrRp = grow("rampruns", _quant(NrR, 512)
+                            if self._fine else _pow2(max(NrR, 1), 512))
+                if NrRp > NrR:
+                    rm = np.zeros((NrRp, RR_N), np.int32)
+                    rm[:NrR] = prog.rampmat
+                    prog.rampmat = rm
+                prog.has_ramp = True
+        if prog.runmat is None and hw.get("runs", 0):
+            # no oscillator rows here, but the signature must match:
+            # dead runmat and the high-water class blocks
+            blocks = []
+            base = 0
+            for cls in ALL_CLASSES:
+                NBp = hw.get(("cls", cls), 0)
+                blocks.append((cls, NBp, np.zeros(NBp, np.int32)))
+                base += NBp * OK.RPB
+            prog.class_blocks = blocks
+            prog.Rtot = base
+            m = np.zeros((hw["runs"], BASE_N), np.int32)
+            m[:, RC_START] = base
+            m[:, RC_RIDX] = -1
+            prog.runmat = m
+            if hw.get("rampruns", 0):
+                prog.rampmat = np.zeros((hw["rampruns"], RR_N), np.int32)
+                prog.has_ramp = True
+        if prog.stash_audio is not None or hw.get("stash", 0):
+            NS = prog.stash_audio.shape[0] \
+                if prog.stash_audio is not None else 0
+            NSp = grow("stash", NS)
+            if NSp > NS:
+                sa = np.zeros((NSp, 2, FRAG), np.int32)
+                sl = np.full(NSp, dead, np.int32)
+                if NS:
+                    sa[:NS] = prog.stash_audio
+                    sl[:NS] = prog.stash_slot
+                prog.stash_audio, prog.stash_slot = sa, sl
+        if prog.stash_mono is not None or hw.get("stashm", 0):
+            NS = prog.stash_mono.shape[0] \
+                if prog.stash_mono is not None else 0
+            NSp = grow("stashm", NS)
+            if NSp > NS:
+                sa = np.zeros((NSp, FRAG), np.int32)
+                sl = np.full(NSp, dead, np.int32)
+                if NS:
+                    sa[:NS] = prog.stash_mono
+                    sl[:NS] = prog.stash_mono_slot
+                prog.stash_mono, prog.stash_mono_slot = sa, sl
+        for st in prog.stages:
+            K = st["arr"].shape[0]
+            Kp = grow(("st",) + st["key"], K)
+            if Kp > K:
+                arr = np.zeros((Kp, 9), np.int32)
+                arr[:, 0] = dead
+                arr[:, 1] = dead
+                arr[:K] = st["arr"]
+                st["arr"] = arr
+            G = st["dense"].shape[0]
+            Gp = grow(("stG",) + st["key"], G)
+            if Gp > G:
+                # padding groups: all-zero rows (frames 0), whose
+                # delta is zero
+                da = np.zeros((Gp, prog.F, 9), np.int32)
+                da[:G] = st["dense"]
+                st["dense"] = da
+        for fd in prog.fbdelays:
+            # sticky dense flag: once any superblock needs the legacy
+            # form for this instance (or its delays drift from those
+            # its dense form began with), it stays legacy, so the ring
+            # format is stable across the song's one signature
+            dkey = ("fbdense", fd["unit_id"])
+            sticky = hw.get(dkey, 1)
+            nowd = int(bool(fd.get("dense"))) & sticky
+            pkey = ("fbpar", fd["unit_id"])
+            if nowd:
+                par = fd.get("fbpar", (-1, -1, -1))
+                seen = hw.get(pkey)
+                if seen is None:
+                    hw[pkey] = par
+                elif seen != par:
+                    nowd = 0
+            hw[dkey] = nowd
+            fd["dense"] = bool(nowd)
+            NS = fd["arr"].shape[0]
+            C = fd["chunk"]
+            NSp = grow(("fbd", fd["unit_id"], C), NS)
+            NSp = ((NSp + C - 1) // C) * C
+            if NSp > NS:
+                arr = np.zeros((NSp, 13), np.int32)
+                arr[:, :4] = dead      # sorted-emit invariant
+                arr[:NS] = fd["arr"]
+                fd["arr"] = arr
+        for fl in prog.filters:
+            S_, K_, W_ = fl["arr"].shape
+            Sp = grow(("flS",) + fl["key"], S_)
+            Kp = grow(("flK",) + fl["key"], K_)
+            if Sp > S_ or Kp > K_:
+                arr = np.zeros((Sp, Kp, W_), np.int32)
+                for c in _FILT_DEAD[fl["kind"]]:
+                    arr[:, :, c] = dead
+                arr[:S_, :K_] = fl["arr"]
+                fl["arr"] = arr
+            # sticky low-water of the observed q (a signature element)
+            qkey = ("flQ",) + fl["key"]
+            mq = min(hw.get(qkey, 1 << 30), fl.get("minq", 1 << 30))
+            hw[qkey] = mq
+            fl["minq"] = mq
+
+        # profiled structure union: dead entries for the stages /
+        # fbdelay instances / filter classes absent from this superblock
+        ust = self._union_stages.get(ns) or {}
+        ufb = self._union_fbd.get(ns) or {}
+        ufl = self._union_filters.get(ns) or {}
+        if ust:
+            have = {st["key"] for st in prog.stages}
+            for key, t in ust.items():
+                if key in have:
+                    continue
+                K = max(t["K"], hw.get(("st",) + key, 0))
+                G = max(t["G"], hw.get(("stG",) + key, 0))
+                hw[("st",) + key] = K
+                hw[("stG",) + key] = G
+                arr = np.zeros((K, 9), np.int32)
+                arr[:, 0] = dead
+                arr[:, 1] = dead
+                prog.stages.append({
+                    "kind": key[2], "key": key, "arr": arr, "n": 0,
+                    "dense": np.zeros((G, prog.F, 9), np.int32)})
+        if ufb:
+            have = {fd["unit_id"] for fd in prog.fbdelays}
+            for uid, t in ufb.items():
+                if uid in have:
+                    continue
+                # an absent instance cannot be dense (its ring time
+                # must freeze): the whole song goes legacy
+                hw[("fbdense", uid)] = 0
+                n = max(t["ns"], hw.get(("fbd", uid, t["chunk"]), t["ns"]))
+                n = ((n + t["chunk"] - 1) // t["chunk"]) * t["chunk"]
+                hw[("fbd", uid, t["chunk"])] = max(
+                    hw.get(("fbd", uid, t["chunk"]), 0), n)
+                fda = np.zeros((n, 13), np.int32)
+                fda[:, :4] = dead      # sorted-emit invariant
+                prog.fbdelays.append({
+                    "unit_id": uid, "key": t["key"],
+                    "stereoin": t["stereoin"],
+                    "stereoout": t["stereoout"], "add": t["add"],
+                    "arr": fda, "n": 0, "chunk": t["chunk"],
+                    "dense": False})
+        if ufl:
+            have = {fl["key"] for fl in prog.filters}
+            for key, t in ufl.items():
+                if key in have:
+                    continue
+                Sp = max(t["S"], hw.get(("flS",) + key, 0))
+                Kp = max(t["K"], hw.get(("flK",) + key, 0))
+                arr = np.zeros((Sp, Kp, _FILT_W[key[2]]), np.int32)
+                for c in _FILT_DEAD[key[2]]:
+                    arr[:, :, c] = dead
+                prog.filters.append({
+                    "kind": key[2], "key": key, "serials": [], "arr": arr,
+                    "n": 0, "minq": min(t.get("minq", 1 << 30),
+                                        hw.get(("flQ",) + key, 1 << 30))})
+
+    def _signature(self, prog):
+        """The JAX mixer's signature tuple of a padded program: shapes,
+        the stage tail's item structure in execution order, readback
+        and quality bits (16 float tier, 32 mono row expansion); the
+        last element (the JAX mixer's packed dispatch format) is None
+        until that format is ported."""
+        rows = tuple((cls, NB) for cls, NB, _ in prog.class_blocks)
+        rpad = prog.runmat.shape[0] if prog.runmat is not None else 0
+        ramppad = prog.rampmat.shape[0] \
+            if getattr(prog, "rampmat", None) is not None else 0
+        ns = prog.stash_audio.shape[0] if prog.stash_audio is not None \
+            else 0
+        nsm = prog.stash_mono.shape[0] \
+            if getattr(prog, "stash_mono", None) is not None else 0
+        items = []
+        for st in prog.stages:
+            items.append(("stage", st["key"],
+                          (st["arr"].shape[0], st["dense"].shape[0]), ""))
+        for fd in prog.fbdelays:
+            # fb/ld/rd ride the signature for dense instances: the dense
+            # body's ring slicing is static in them
+            items.append(("fbd", fd["key"],
+                          (fd["arr"].shape[0], fd["stereoin"],
+                           fd["stereoout"], fd["add"], fd["chunk"],
+                           bool(fd["dense"]))
+                          + (tuple(fd.get("fbpar", (-1, -1, -1)))
+                             if fd["dense"] else ()),
+                          str(fd["unit_id"])))
+        for fl in prog.filters:
+            ok = int(fl.get("minq", 1 << 30) >= _FLOAT_TIER_MINQ)
+            items.append(("filt", fl["key"],
+                          fl["arr"].shape[:2] + (ok,), ""))
+        items.sort(key=lambda t: (t[1], t[3]))
+        items = [t[:3] for t in items]
+        return (prog.F, prog.ninst, prog.master_inst,
+                prog.master_channels, rows, rpad, ns, nsm,
+                ramppad if prog.has_ramp else 0, self.readback,
+                self.quality + (32 if rpad and not getattr(
+                    prog, "rows_stereo", True) else 0),
+                tuple(items), None)
+
+    def device_bytes(self, prog):
+        """Device memory of one stream at this program's signature, with
+        the JAX mixer's keys: persistent (fbdelay rings, filter / fm
+        state), exec (slots, row audio, ramp trajectories, stash of one
+        executing superblock), blob (the upload) and master (the
+        readback) of each superblock in flight, working (their sum),
+        and atlas (the shared wave atlas, counted once)."""
+        self._repad(prog)
+        sig = self._signature(prog)
+        (F, ninst, minst, mch, rows_sig, rpad, ns, nsm, ramppad,
+         readback, quality, items, rmq) = sig
+        persistent = 0
+        for t, k, e in items:
+            if t == "fbd":
+                persistent += 2 * (FB.FBD_TAIL if e[5]
+                                   else FB.FBD_BUFSIZE) * 4
+            elif t == "filt":
+                persistent += e[1] * (8 if k[2] == "lim" else 16)
+        blob = blob_layout(sig)[1] * 4
+        Rtot = sum(NB * OK.RPB for _, NB in rows_sig)
+        execb = (ninst * F + 1) * 2 * FRAG * 4             # slots
+        execb += Rtot * (FRAG if quality & 32
+                         else 2 * FRAG) * 4                # row audio
+        if ramppad:
+            execb += (RUN_KCHUNK - 1) * ramppad * 10 * 4   # traj
+        execb += ns * 2 * FRAG * 4 + nsm * FRAG * 4        # stash
+        master = F * mch * FRAG * (2 if readback == "i16" else 4)
+        atlas = self.core._pair_atlas
+        return {"persistent": persistent, "blob": blob, "exec": execb,
+                "master": master, "working": blob + execb + master,
+                "atlas": (atlas.data.nbytes if atlas is not None
+                          and atlas.data is not None else 0)}
+
+    # ---- the superblock body (everything a graph captures) ----
+
+    def _row_params(self, rm, rmp, tbases, rows_sig, mono, dead_slot):
+        """Run -> row expansion (the JAX mixer's ``_expand_rows`` up to
+        its kernel calls) from device tensors: rm int64 runmat, rmp
+        int64 rampmat or None, tbases int32 [NB] per class block.
+        Returns (classes, slot_r) where classes lists (pass_class, tbase
+        int32 [NB], params int32 [NPARAM, NB*RPB] or the class-0 inputs
+        dict) in row order, and slot_r is each row's int64 slot index
+        (dead_slot for dead rows)."""
+        dev = rm.device
+        Rtot = sum(NB * OK.RPB for _, NB in rows_sig)
         start = rm[:, RC_START]
         alive_run = (rm[:, RC_LEN] > 0).to(torch.int64)
         mark = torch.zeros(Rtot + 1, dtype=torch.int64, device=dev)
@@ -457,11 +1062,10 @@ class TorchMixer:
         pan0 = _w(g[:, RC_PAN0] + _w(kn * g[:, RC_DPAN]))
         dvol = g[:, RC_DVOL]
         dpan = g[:, RC_DPAN]
-        has_ramp = bool(prog.has_ramp) and prog.rampmat is not None \
-            and len(prog.rampmat) > 0
+        has_ramp = rmp is not None
         tg = None
         if has_ramp:
-            traj = _ramp_scan(self._t(prog.rampmat), rm, self._ptabs)
+            traj = _ramp_scan(rmp, rm, self._ptabs)
             NrR = traj.shape[1]
             ridx = g[:, RC_RIDX]
             fidx = (k - 1).clamp(0, RUN_KCHUNK - 2) * NrR + ridx.clamp(min=0)
@@ -501,7 +1105,7 @@ class TorchMixer:
 
         classes = []
         b0 = 0
-        for cls, NB, tb in prog.class_blocks:
+        for (cls, NB), tb in zip(rows_sig, tbases):
             if not NB:
                 continue
             P = NB * OK.RPB
@@ -522,170 +1126,540 @@ class TorchMixer:
                     "dpan": dpan[sl], "end": end[sl], "mode": mode[sl]}))
                 continue
             par = torch.stack([x[sl] for x in fields]).to(torch.int32)
-            classes.append((cls, self._t(tb, torch.int32), par))
+            classes.append((cls, tb, par))
+        return classes, slot_r
+
+    def row_params(self, prog):
+        """``_row_params`` of a program as the builder made it (or
+        padded), its tables uploaded here.  Returns (classes, slot_r,
+        mono)."""
+        self._ensure_static()
+        mono = not bool((prog.runmat[:, RC_MODE] & _ROW_STEREO).any())
+        if prog.stash_audio is not None and len(prog.stash_audio):
+            mono = mono and not prog.stash_audio[:, 1].any()
+        rmp = self._t(prog.rampmat) if prog.has_ramp \
+            and prog.rampmat is not None and len(prog.rampmat) else None
+        classes, slot_r = self._row_params(
+            self._t(prog.runmat), rmp,
+            [self._t(tb, torch.int32) for _, _, tb in prog.class_blocks],
+            [(cls, NB) for cls, NB, _ in prog.class_blocks], mono,
+            prog.ninst * prog.F)
         return classes, slot_r, mono
 
     def _class0_audio(self, c, mono):
         res = _noise_audio(c["size"], c["posoff"], c["ph"], c["dphu"],
                            c["off"], c["runoff"], c["k"], c["use"],
                            c["cnt0"], c["amp"], c["damp"])
-        n = torch.arange(FRAG, dtype=torch.int64, device=self.device)
+        n = torch.arange(FRAG, dtype=torch.int64, device=res.device)
         dcres = _w(c["amp"][:, None] + n[None, :] * c["damp"][:, None])
         dcf = ((c["mode"] & _ROW_DC) != 0)[:, None]
         res = torch.where(dcf, dcres, res)
         return _panmix_rows(res, c["vol0"], c["dvol"], c["pan0"],
                             c["dpan"], c["off"], c["end"], c["mode"], mono)
 
-    def _expand_rows(self, prog, slots):
-        """Evaluates every row and adds its audio into its slot."""
-        classes, slot_r, mono = self.row_params(prog)
-        atlas = self.device_atlas()
-        outs = []
-        for cls, tb, par in classes:
-            if cls == 0:
-                outs.append(self._class0_audio(par, mono))
+    def _body(self, sig, v, st, master):
+        """One superblock from the device buffers of its signature: v
+        the blob's views (``blob_layout``), st its ``_StateSet``
+        (advanced in place), master the static output [F, channels,
+        64].  No host data and no host synchronisation: a CUDA graph
+        captures it."""
+        (F, ninst, minst, mch, rows_sig, rpad, ns, nsm, ramppad,
+         readback, quality, items, _) = sig
+        dev = master.device
+        mono = bool(quality & 32)
+        nslot = ninst * F + 1
+        slots = torch.zeros((nslot, 2, FRAG), dtype=torch.int32, device=dev)
+        Rtot = sum(NB * OK.RPB for _, NB in rows_sig)
+        if rpad and Rtot:
+            classes, slot_r = self._row_params(
+                v["rm"].to(torch.int64),
+                v["rmp"].to(torch.int64) if ramppad else None,
+                [v[("tbase", i)] for i in range(len(rows_sig))], rows_sig,
+                mono, nslot - 1)
+            outs = []
+            for cls, tb, par in classes:
+                if cls == 0:
+                    outs.append(self._class0_audio(par, mono))
+                else:
+                    res = OK.osc_call(cls, tb, par, self._atlas_dev,
+                                      quality=quality & 15, fused_pm=True,
+                                      mono=mono)
+                    outs.append(res.t())             # (P, C*64)
+            audio = torch.cat(outs, dim=0)
+            if mono:
+                slots[:, 0].index_add_(0, slot_r, audio)
             else:
-                res = OK.osc_call(cls, tb, par, atlas, quality=self.quality,
-                                  fused_pm=True, mono=mono)
-                outs.append(res.t())                 # (P, C*64)
-        audio = torch.cat(outs, dim=0)
-        if mono:
-            slots[:, 0].index_add_(0, slot_r, audio)
-        else:
-            slots.view(slots.shape[0], 2 * FRAG).index_add_(0, slot_r, audio)
-
-    def _fbd_is_dense(self, fd):
-        """The sticky dense flag (JAX ``DeviceMixer._repad``): once a
-        superblock needs the legacy form for an instance, or its
-        delays differ from those its dense form began with, the
-        instance stays legacy."""
-        uid = fd["unit_id"]
-        dense = bool(fd["dense"]) and self._fbd_dense.get(uid, True)
-        if dense:
-            dense = self._fbd_par.setdefault(uid, fd["fbpar"]) \
-                == fd["fbpar"]
-        self._fbd_dense[uid] = dense
-        return dense
-
-    def _fbdelay(self, slots, fd, F):
-        """One fbdelay item, with its ring.  The two forms keep their
-        rings in two formats (dense: the last 2^17 samples, time
-        ordered; legacy: a 2^20 ring ending at position - 1); a switch
-        from dense to legacy converts the ring exactly (JAX
-        ``_prepare``)."""
-        uid = fd["unit_id"]
-        dense = self._fbd_is_dense(fd)
-        want = FB.FBD_TAIL if dense else FB.FBD_BUFSIZE
-        ring = self._rings.get(uid)
-        if ring is None:
-            ring = [torch.zeros((2, want), dtype=torch.int32,
-                                device=self.device), 0]
-        elif ring[0].shape[1] != want:
-            cur = ring[0]
-            if dense:
-                pos = ring[1] & (FB.FBD_BUFSIZE - 1)
-                idx = (pos - FB.FBD_TAIL + torch.arange(
-                    FB.FBD_TAIL, device=self.device)) % FB.FBD_BUFSIZE
-                ring = [cur[:, idx].contiguous(), 0]
+                slots.view(nslot, 2 * FRAG).index_add_(0, slot_r, audio)
+        if ns:
+            slots.view(nslot, 2 * FRAG).index_add_(
+                0, v["sas"].to(torch.int64), v["sa"].view(ns, 2 * FRAG))
+        if nsm:
+            slots[:, 0].index_add_(0, v["sms"].to(torch.int64), v["sm"])
+        fi = li = pj = 0
+        for j, (tag, key, extra) in enumerate(items):
+            if tag == "stage":
+                K, G = extra
+                if G:
+                    _apply_stage_dense(slots, key,
+                                       v[("itd", j)].to(torch.int64), F)
+                if K:
+                    _apply_stage(slots, key, v[("it", j)].to(torch.int64))
+            elif tag == "fbd":
+                ring = st.rings[fi]
+                arr = v[("it", j)]
+                fsig = (extra[1], extra[2], extra[3], extra[4])
+                if extra[5]:
+                    ring.copy_(FB.apply_fbdelay_dense(
+                        slots, fsig + tuple(extra[6:9]), arr, ring, F))
+                else:
+                    FB.apply_fbdelay(slots, fsig, arr, ring,
+                                     v["fbdpos"][fi:fi + 1].to(torch.int64))
+                fi += 1
             else:
-                full = torch.zeros((2, FB.FBD_BUFSIZE), dtype=torch.int32,
-                                   device=self.device)
-                full[:, FB.FBD_BUFSIZE - FB.FBD_TAIL:] = cur
-                ring = [full, 0]
-        self._rings[uid] = ring
-        arr = self._t(fd["arr"], torch.int32)
-        sig = (fd["stereoin"], fd["stereoout"], fd["add"], fd["chunk"])
-        if dense:
-            ring[0] = FB.apply_fbdelay_dense(slots, sig + fd["fbpar"], arr,
-                                             ring[0], F)
-        else:
-            FB.apply_fbdelay(slots, sig, arr, ring[0], ring[1])
-            ring[1] = (ring[1] + int(fd["arr"][:, 5].sum())) \
-                % FB.FBD_BUFSIZE
+                kind = key[2]
+                K = extra[1]
+                state = st.filt[li]
+                # lanes follow the unit serials: the previous superblock's
+                # lane, or the initial state (-1)
+                pm = v["fperm"][pj:pj + K].to(torch.int64)
+                fresh = (pm < 0).view((K,) + (1,) * (state.dim() - 1))
+                state.copy_(torch.where(
+                    fresh, torch.full_like(state, _FILT_INIT[kind]),
+                    state[pm.clamp(min=0)]))
+                arr = v[("it", j)]
+                if kind == "fm":
+                    FM.fm_call(slots, (key[3], key[4], key[5][0]), arr,
+                               state, self._sine, v[("fgrp", j)])
+                else:
+                    FL.filter_call(slots, kind, key[3:8], arr, state,
+                                   v[("fgrp", j)])
+                li += 1
+                pj += K
+        m = slots[minst * F:(minst + 1) * F, :mch]
+        if readback == "i16":
+            m = torch.clamp(m >> 8, -32768, 32767).to(torch.int16)
+        master.copy_(m)
 
-    def _filter(self, slots, fl):
-        """One filter12 / dcblock / limiter / fm item.  Its state rows
-        follow the unit serials: a serial seen in the previous
-        superblock keeps its row, a new one starts from the initial
-        state (JAX ``_prepare`` / ``_build_fn``)."""
-        kind, key, cur = fl["kind"], fl["key"], fl["serials"]
-        K = fl["arr"].shape[1]
-        state = FL.init_state(kind, K, self.device)
-        prev = self._filt.get(key)
-        if prev is not None:
-            pos = {s: i for i, s in enumerate(prev[1])}
-            perm = [(j, pos[s]) for j, s in enumerate(cur) if s in pos]
-            if perm:
-                dst, src = zip(*perm)
-                state[list(dst)] = prev[0][list(src)]
-        arr = self._t(fl["arr"], torch.int32)
-        if kind == "fm":
-            if self._sine is None:
-                self._sine = self._t(FM.sine_pairs(), torch.int32)
-            sig = (key[3], key[4], key[5][0])
-            FM.fm_call(slots, sig, arr, state, self._sine,
-                       FM.groups(fl["arr"], sig))
+    # ---- host side of a dispatch ----
+
+    def _pids(self, prog):
+        """The persistent-state ids a padded program binds, in the state
+        set's order: [("ring", unit id), ...] + [("filt", (ns, key))]."""
+        ns = getattr(prog, "ns", 0)
+        out = []
+        for tag, key, it in stage_items(prog):
+            if tag == "fbd":
+                out.append(("ring", it["unit_id"]))
+            elif tag == "filt":
+                out.append(("filt", (ns, key)))
+        rings = [p for p in out if p[0] == "ring"]
+        return rings + [p for p in out if p[0] == "filt"]
+
+    def _prepare(self, prog):
+        """All host work of one superblock: pads the program, takes its
+        signature, brings its stream's persistent state into the
+        signature's format (a dense <-> legacy ring conversion; filter
+        state grown to the padded K), advances the host-side state (ring
+        positions, lane serials) and fills the numpy upload blob,
+        including the filter lane permutation (previous lane or -1) and
+        each filter / fm item's step groups.  Returns (sig, blob, pids,
+        (frag sizes, channels)).  Device work here (state conversions)
+        runs on the caller's stream."""
+        self._ensure_static()
+        self._repad(prog)
+        sig = self._signature(prog)
+        ns_ = getattr(prog, "ns", 0)
+        layout, total = blob_layout(sig)
+        blob = np.zeros(total, np.int32)
+
+        def put(name, a):
+            pos, shape = layout[name]
+            a = np.asarray(a)
+            blob[pos:pos + a.size] = a.ravel().astype(np.int32, copy=False)
+
+        for i, (_, _, tb) in enumerate(prog.class_blocks):
+            put(("tbase", i), tb)
+        if sig[5]:
+            put("rm", prog.runmat)
+        if sig[8]:
+            put("rmp", prog.rampmat)
+        if sig[6]:
+            put("sa", prog.stash_audio)
+            put("sas", prog.stash_slot)
+        if sig[7]:
+            put("sm", prog.stash_mono)
+            put("sms", prog.stash_mono_slot)
+        fbd_pos = []
+        perm = []
+        for j, (tag, key, ob) in enumerate(stage_items(prog)):
+            if tag == "stage":
+                if ob["arr"].shape[0]:
+                    put(("it", j), ob["arr"])
+                if ob["dense"].shape[0]:
+                    put(("itd", j), ob["dense"])
+                continue
+            put(("it", j), ob["arr"])
+            if tag == "fbd":
+                uid = ob["unit_id"]
+                dense = bool(ob["dense"])
+                want = FB.FBD_TAIL if dense else FB.FBD_BUFSIZE
+                ring = self._rings.get(uid)
+                if ring is None:
+                    ring = [torch.zeros((2, want), dtype=torch.int32,
+                                        device=self.device), 0]
+                    self._rings[uid] = ring
+                elif ring[0].shape[1] != want:
+                    # dense <-> legacy state conversion (at most once per
+                    # song, when the sticky dense flag settles): both
+                    # hold the last samples, dense time-ordered, legacy
+                    # ending at position - 1
+                    cur = ring[0]
+                    if dense:
+                        pos = ring[1] & (FB.FBD_BUFSIZE - 1)
+                        idx = (pos - FB.FBD_TAIL + torch.arange(
+                            FB.FBD_TAIL, device=self.device)) \
+                            % FB.FBD_BUFSIZE
+                        ring[0] = cur[:, idx].contiguous()
+                    else:
+                        full = torch.zeros((2, FB.FBD_BUFSIZE),
+                                           dtype=torch.int32,
+                                           device=self.device)
+                        full[:, FB.FBD_BUFSIZE - FB.FBD_TAIL:] = cur
+                        ring[0] = full
+                    ring[1] = 0
+                fbd_pos.append(ring[1] & (FB.FBD_BUFSIZE - 1))
+                if not dense:
+                    ring[1] = (ring[1] + int(ob["arr"][:, 5].sum())) \
+                        % FB.FBD_BUFSIZE
+            else:
+                kind = ob["kind"]
+                K = ob["arr"].shape[1]
+                cur = list(ob["serials"])
+                cur += [None] * (K - len(cur))
+                ck = (ns_, key)
+                ent = self._filt.get(ck)
+                if ent is None:
+                    ent = [FL.init_state(kind, K, self.device), []]
+                    self._filt[ck] = ent
+                elif ent[0].shape[0] != K:
+                    init = FL.init_state(kind, K, self.device)
+                    ent[0] = torch.cat([ent[0][:K],
+                                        init[ent[0].shape[0]:]], dim=0)
+                prev = {}
+                for i, s in enumerate(ent[1]):
+                    prev.setdefault(s, i)
+                perm.extend(prev.get(s, -1) if s is not None else -1
+                            for s in cur)
+                ent[1] = cur
+                sg = (key[3], key[4], key[5][0]) if kind == "fm" \
+                    else key[3:8]
+                grp = FM.groups(ob["arr"], sg) if kind == "fm" \
+                    else FL.groups(ob["arr"], sg)
+                put(("fgrp", j), FL.pack_bounds(grp, ob["arr"].shape[0]))
+        if fbd_pos:
+            put("fbdpos", fbd_pos)
+        if perm:
+            put("fperm", perm)
+        return sig, blob, self._pids(prog), \
+            (list(prog.frag_sizes), prog.master_channels)
+
+    def _bind(self, st, pids):
+        """Points each persistent state of `pids` at its buffer in the
+        state set `st`; copies it in where another state sits there
+        (whose holder then gets a copy of its own first)."""
+        idx = {"ring": 0, "filt": 0}
+        for kind, pid in pids:
+            i = idx[kind]
+            idx[kind] += 1
+            store = self._rings if kind == "ring" else self._filt
+            buf = (st.rings if kind == "ring" else st.filt)[i]
+            ent = store[pid]
+            if ent[0] is buf:
+                continue
+            owner = st.owners[kind][i]
+            if owner is not None:
+                old = store.get(owner)
+                if old is not None and old[0] is buf:
+                    old[0] = buf.clone()
+            buf.copy_(ent[0])
+            ent[0] = buf
+            st.owners[kind][i] = pid
+
+    # ---- entries and graphs ----
+
+    def _entry(self, table, key, sigs, chain, capture=False):
+        """The dispatch unit of `key` in `table` (``_fns`` or
+        ``_chain_fns``), made on first use, and made again when the atlas
+        it read has been replaced.  On the card its CUDA graph is
+        captured when `capture` is set (``precompile``) or when the unit
+        is used again: a unit's first dispatch runs its bodies eagerly,
+        since a capture costs more than one eager run and a signature
+        that never recurs (a synchronous render's pow2 shapes) would not
+        repay it.  Returns (entry, whether it was made or captured)."""
+        e = table.get(key)
+        made = e is None or e.atlas_ver != self._atlas_ver
+        if made:
+            e = _Entry(self, sigs, chain)
+            table[key] = e
+        if self.device.type == "cuda" and e.graph is None \
+                and (capture or not made):
+            self._capture(e)
+            return e, True
+        return e, made
+
+    def _capture(self, e):
+        """Captures the entry's bodies as one CUDA graph.  Capturing
+        launches nothing: the wrappers count this thread's launches into
+        the entry (``build.captured_launches``), to be added at each
+        launch of the graph, while other threads' launches count as
+        they happen.  ``capture_log`` keeps each capture's host seconds:
+        running the bodies under capture, and ending it (instantiating
+        the graph)."""
+        t0 = time.perf_counter()
+        g = torch.cuda.CUDAGraph()
+        cs = self._gstream
+        cs.wait_stream(self._cstream)
+        with _CAPTURE_LOCK, build.captured_launches() as counts, \
+                torch.cuda.stream(cs):
+            g.capture_begin(pool=self._pool, capture_error_mode="relaxed")
+            try:
+                e.run(self)
+            finally:
+                t1 = time.perf_counter()
+                g.capture_end()
+        self._cstream.wait_stream(cs)
+        t2 = time.perf_counter()
+        e.graph = g
+        e.launches = counts
+        self.captures += 1
+        self.capture_s += t2 - t0
+        self.capture_log.append({"bodies": len(e.sigs), "run_s": t1 - t0,
+                                 "end_s": t2 - t1})
+
+    def _pinned_get(self, shape, dtype):
+        with self._pin_lock:
+            free = self._pinned.get((shape, dtype))
+            if free:
+                return free.pop()
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def _pinned_put(self, t):
+        with self._pin_lock:
+            self._pinned.setdefault((tuple(t.shape), t.dtype), []).append(t)
+
+    def _launch(self, e, blobs, pidss, metas):
+        """Uploads the blobs of an entry's bodies, binds their streams'
+        state and runs the entry: on the card one graph replay, or the
+        bodies eagerly at the entry's first use (the upload on the
+        upload stream from pinned memory, the compute stream waiting on
+        it; each master then copied to pinned host memory on the
+        compute stream and recorded by an event), the bodies eagerly on
+        the CPU.  Returns one fetch handle per
+        body."""
+        if self.device.type != "cuda":
+            for (o, n), b in zip(e.offs, blobs):
+                e.blob[o:o + n] = torch.from_numpy(b)
+            for st, pids in zip(e.states, pidss):
+                self._bind(st, pids)
+            e.run(self)
+            return [("cpu", m.clone(), meta)
+                    for m, meta in zip(e.masters, metas)]
+        k = e.k
+        e.k ^= 1
+        if e.stage_ev[k] is not None:
+            e.stage_ev[k].synchronize()      # its last upload has left
+        host = e.stage[k].numpy()
+        for (o, n), b in zip(e.offs, blobs):
+            host[o:o + n] = b
+        up = torch.cuda.Event()
+        with torch.cuda.stream(self._ustream):
+            # the last run has read the device blob
+            self._ustream.wait_event(e.free_ev)
+            e.blob.copy_(e.stage[k], non_blocking=True)
+            up.record(self._ustream)
+        e.stage_ev[k] = up
+        self._cstream.wait_event(up)
+        for st, pids in zip(e.states, pidss):
+            self._bind(st, pids)
+        if self.time_device:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record(self._cstream)
+        if e.graph is None:
+            e.run(self)              # first use: eager launches
         else:
-            FL.filter_call(slots, kind, key[3:8], arr, state,
-                           FL.groups(fl["arr"], key[3:8]))
-        self._filt[key] = (state, list(cur))
+            e.graph.replay()
+            build.add_launches(e.launches)
+            self.replays += 1
+        if self.time_device:
+            t1.record(self._cstream)
+            self._dev_events.append((t0, t1))
+        e.free_ev.record(self._cstream)
+        handles = []
+        for m, meta in zip(e.masters, metas):
+            out = self._pinned_get(tuple(m.shape), m.dtype)
+            out.copy_(m, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._cstream)
+            handles.append(("cuda", (ev, out), meta))
+        return handles
+
+    def _locked(self, fn, *args):
+        self._ensure_static()
+        if self.transfer_lock is None:
+            with self._stream():
+                return fn(*args)
+        with self.transfer_lock, self._stream():
+            return fn(*args)
+
+    # ---- dispatch API (the JAX mixer's) ----
+
+    def run(self, prog):
+        """Returns master audio int32 [channels][frames] (numpy)."""
+        return self.fetch(self.dispatch(prog))
 
     def dispatch(self, prog):
-        """Runs one superblock; returns the master slice as a device
-        tensor [F, channels, 64] (int32, or int16 for readback="i16")."""
-        F = prog.F
-        nslot = prog.ninst * F + 1
-        dev = self.device
-        slots = torch.zeros((nslot, 2, FRAG), dtype=torch.int32, device=dev)
-        Rtot = sum(NB * OK.RPB for _, NB, _ in prog.class_blocks)
-        if prog.runmat is not None and len(prog.runmat) and Rtot:
-            self._expand_rows(prog, slots)
-        if prog.stash_audio is not None and len(prog.stash_audio):
-            slots.view(nslot, 2 * FRAG).index_add_(
-                0, self._t(prog.stash_slot),
-                self._t(prog.stash_audio, torch.int32)
-                .reshape(-1, 2 * FRAG))
-        if prog.stash_mono is not None and len(prog.stash_mono):
-            slots[:, 0].index_add_(0, self._t(prog.stash_mono_slot),
-                                   self._t(prog.stash_mono, torch.int32))
-        for tag, key, it in stage_items(prog):
-            if tag == "stage":
-                if it["dense"].shape[0]:
-                    _apply_stage_dense(slots, key, self._t(it["dense"]), F)
-                if it["arr"].shape[0]:
-                    _apply_stage(slots, key, self._t(it["arr"]))
-            elif tag == "fbd":
-                self._fbdelay(slots, it, F)
-            else:
-                self._filter(slots, it)
-        m = prog.master_inst
-        master = slots[m * F:(m + 1) * F, :prog.master_channels]
-        if self.readback == "i16":
-            master = torch.clamp(master >> 8, -32768, 32767) \
-                .to(torch.int16)
-        return master
+        """Dispatches one superblock asynchronously; returns a handle for
+        ``fetch``.  The first dispatch of a signature runs its body
+        eagerly and the next captures its graph (``precompile`` captures
+        it ahead)."""
+        return self._locked(self._dispatch, prog)
 
-    def fetch(self, master, prog):
-        """Master tensor -> [channels][frames] int32 numpy."""
-        out = master.cpu().numpy()
+    def _dispatch(self, prog):
+        sig, blob, pids, meta = self._prepare(prog)
+        e, _ = self._entry(self._fns, sig, [sig], True)
+        return self._launch(e, [blob], [pids], [meta])[0]
+
+    def precompile(self, prog):
+        """Captures this program's signature from its shapes alone (no
+        data moves, no state changes) before a render needs it.
+        Returns True if a capture (on the CPU: the static buffers)
+        happened."""
+        def go():
+            self._ensure_static()
+            self._repad(prog)
+            sig = self._signature(prog)
+            return self._entry(self._fns, sig, [sig], True, True)[1]
+        return self._locked(go)
+
+    def dispatch_chain(self, progs):
+        """ONE graph launch for n consecutive superblocks of one stream,
+        their state threaded in place from each to the next.  Needs
+        every program to share one signature and one state population
+        (true for a profiled song in steady state); dispatches them one
+        by one otherwise.  Returns the fetch handles in order."""
+        return self._locked(self._dispatch_chain, progs)
+
+    def _dispatch_chain(self, progs):
+        if len(progs) == 1:
+            return [self._dispatch(progs[0])]
+        self._ensure_static()
+        sigs = []
+        for p in progs:
+            self._repad(p)
+            sigs.append(self._signature(p))
+        pids = self._pids(progs[0])
+        if any(s != sigs[0] for s in sigs) \
+                or any(self._pids(p) != pids for p in progs[1:]):
+            return [self._dispatch(p) for p in progs]
+        preps = [self._prepare(p) for p in progs]
+        e, _ = self._entry(self._chain_fns, ("chain", sigs[0], len(progs)),
+                           sigs, True)
+        return self._launch(e, [pr[1] for pr in preps], [pids],
+                            [pr[3] for pr in preps])
+
+    def precompile_chain(self, prog, n):
+        """Captures the n-superblock chain of this program's signature
+        (the solo counterpart of ``precompile_many``)."""
+        def go():
+            self._ensure_static()
+            self._repad(prog)
+            sig = self._signature(prog)
+            return self._entry(self._chain_fns, ("chain", sig, n),
+                               [sig] * n, True, True)[1]
+        return self._locked(go)
+
+    def dispatch_many(self, progs):
+        """ONE graph launch for a batch of superblocks of state-disjoint
+        streams (one per stream of a multiplexed fleet), each with its
+        own state.  Returns a fetch handle per program."""
+        return self._locked(self._dispatch_many, progs)
+
+    def _dispatch_many(self, progs):
+        if len(progs) == 1:
+            return [self._dispatch(progs[0])]
+        self._ensure_static()
+        for p in progs:
+            self._repad(p)
+        allp = [pid for p in progs for pid in self._pids(p)]
+        if len(set(allp)) != len(allp):
+            return [self._dispatch(p) for p in progs]
+        preps = [self._prepare(p) for p in progs]
+        sigs = tuple(pr[0] for pr in preps)
+        e, _ = self._entry(self._chain_fns, ("many", sigs), list(sigs),
+                           False)
+        return self._launch(e, [pr[1] for pr in preps],
+                            [pr[2] for pr in preps],
+                            [pr[3] for pr in preps])
+
+    def precompile_many(self, progs):
+        """Captures the batch of these programs' signatures (a serving
+        fleet's, before its window opens).  Returns True if a capture
+        happened."""
+        def go():
+            self._ensure_static()
+            for p in progs:
+                self._repad(p)
+            sigs = tuple(self._signature(p) for p in progs)
+            if len(progs) < 2:
+                return False
+            return self._entry(self._chain_fns, ("many", sigs),
+                               list(sigs), False, True)[1]
+        return self._locked(go)
+
+    def fetch(self, handle):
+        """Waits for a dispatched superblock's master and returns it as
+        [channels][frames] int32 numpy."""
+        where, res, (frag_sizes, mch) = handle
+        if where == "cpu":
+            out = res.numpy()
+        else:
+            ev, host = res
+            ev.synchronize()
+            if self.transfer_lock is not None:
+                with self.transfer_lock:
+                    out = host.numpy().copy()
+            else:
+                out = host.numpy().copy()
+            self._pinned_put(host)
         if out.dtype == np.int16:
             # the int32 8:24 contract from the 16-bit conversion
             out = out.astype(np.int32) << 8
-        mch = prog.master_channels
-        total = sum(prog.frag_sizes)
-        if total == len(prog.frag_sizes) * FRAG:
+        total = sum(frag_sizes)
+        if total == len(frag_sizes) * FRAG:
             flat = out.transpose(1, 0, 2).reshape(mch, total)
             return [flat[ch] for ch in range(mch)]
         bufs = []
         for ch in range(mch):
             b = np.empty(total, np.int32)
             pos = 0
-            for fi, nfr in enumerate(prog.frag_sizes):
+            for fi, nfr in enumerate(frag_sizes):
                 b[pos:pos + nfr] = out[fi, ch, :nfr]
                 pos += nfr
             bufs.append(b)
         return bufs
 
-    def run(self, prog):
-        """Returns master audio int32 [channels][frames] (numpy)."""
-        return self.fetch(self.dispatch(prog), prog)
+    def device_seconds(self):
+        """Device seconds of the graph launches timed since the last
+        call (``time_device``); waits for them to finish."""
+        ev, self._dev_events = self._dev_events, []
+        total = 0.0
+        for t0, t1 in ev:
+            t1.synchronize()
+            total += t0.elapsed_time(t1) * 1e-3
+        return total
+
+    def reset_instance(self, unit_id):
+        """Drops an fbdelay instance's ring: its next superblock starts
+        from silence."""
+        self._rings.pop(unit_id, None)

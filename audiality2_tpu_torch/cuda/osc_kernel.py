@@ -20,6 +20,7 @@ row's ``[OFF, END)`` window.  All arithmetic is int32 with wrap.
 """
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -61,38 +62,48 @@ class PairAtlas:
         self._index = {}         # (wave_key, mip) -> (tbase, npass, off)
         self.data = None         # numpy (T, 128) after finalize
         self.version = 0
+        # a fleet-shared atlas (serve.render_multiplexed) is mutated
+        # from record threads when a stream's superblock meets an unseen
+        # wave: add_wave's tbase = len(_rows) and the extend must not
+        # interleave.  Reentrant, so that callers hold it across their
+        # own check-then-act (DeviceRenderer.atlas_entry).
+        self.lock = threading.RLock()
 
     def add_wave(self, key, wave):
-        for mm in range(wave.miplevels):
-            d = np.asarray(wave.data[mm], dtype=np.int32)
-            # pairs P[k] = (d16[k+1]<<16) | u16(d16[k]); one extra 0
-            # beyond the padded data is never read
-            lo = d & 0xFFFF
-            hi = np.empty_like(d)
-            hi[:-1] = d[1:]
-            hi[-1] = 0
-            pairs = (hi << 16) | lo
-            npad = (-len(pairs)) % 128
-            if npad:
-                pairs = np.concatenate([pairs, np.zeros(npad, np.int32)])
-            tbase = len(self._rows)
-            self._rows.extend(pairs.reshape(-1, 128))
-            npass = len(pairs) // 128
-            # oscillator positions are relative to data[0] = index
-            # A2_WAVEPRE within the padded block
-            self._index[(key, mm)] = (tbase, npass, A2_WAVEPRE)
+        with self.lock:
+            for mm in range(wave.miplevels):
+                d = np.asarray(wave.data[mm], dtype=np.int32)
+                # pairs P[k] = (d16[k+1]<<16) | u16(d16[k]); one extra
+                # 0 beyond the padded data is never read
+                lo = d & 0xFFFF
+                hi = np.empty_like(d)
+                hi[:-1] = d[1:]
+                hi[-1] = 0
+                pairs = (hi << 16) | lo
+                npad = (-len(pairs)) % 128
+                if npad:
+                    pairs = np.concatenate([pairs,
+                                            np.zeros(npad, np.int32)])
+                tbase = len(self._rows)
+                self._rows.extend(pairs.reshape(-1, 128))
+                npass = len(pairs) // 128
+                # oscillator positions are relative to data[0] = index
+                # A2_WAVEPRE within the padded block
+                self._index[(key, mm)] = (tbase, npass, A2_WAVEPRE)
 
     def finalize(self):
-        if self._rows:
-            arr = np.stack(self._rows)
-        else:
-            arr = np.zeros((1, 128), dtype=np.int32)
-        self.data = arr
-        self.version += 1
-        return self.data
+        with self.lock:
+            if self._rows:
+                arr = np.stack(self._rows)
+            else:
+                arr = np.zeros((1, 128), dtype=np.int32)
+            self.data = arr
+            self.version += 1
+            return self.data
 
     def lookup(self, key, mip):
-        return self._index[(key, mip)]
+        with self.lock:
+            return self._index[(key, mip)]
 
 
 def pass_class(npass):
@@ -336,7 +347,7 @@ def osc_call(npass, tbase, params, atlas, quality=0, fused_pm=True,
                               int(bool(fused_pm)), int(bool(mono)),
                               stream)
     build.launch_check(err, "osc")
-    osc_call.launches += 1
+    build.count_launch(osc_call)
     return out
 
 

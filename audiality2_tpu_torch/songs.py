@@ -48,6 +48,7 @@ Song()
 # 11 s of audio.  A 2752x64-frame superblock records one dense stereo
 # fbdelay item (fb/ld/rd 300/200/250 ms), the master limiter (one
 # instance), and filter12, dcblock and fm items of about 60 instances.
+# The argument T (default 0) transposes the leads and bells.
 EFFECTS_SONG = """
 Lead(P V=1)
 {
@@ -67,25 +68,25 @@ Bell(P V=1)
 	d 10
 	a 0; d 350
 }
-Echo()
+Echo(T=0)
 {
 	struct { inline 0 2; fbdelay 2 2; panmix 2 > }
 	fbdelay 300; ldelay 200; rdelay 250
 	drygain .7; fbgain .3; lgain .3; rgain .3
 	!n 0
 	140 {
-		Lead (n * .0833 - 1) .3
-		Bell (n * .0833 + 1) .1
+		Lead (T + n * .0833 - 1) .3
+		Bell (T + n * .0833 + 1) .1
 		+n 1
 		d 70
 	}
 	d 1500
 }
-Song()
+Song(T=0)
 {
 	struct { inline 0 2; panmix PM 2 2; limiter L 2 > }
 	L.release 64; L.threshold 4
-	1:Echo
+	1:Echo T
 	d 11000
 }
 """

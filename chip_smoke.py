@@ -29,22 +29,44 @@ seconds:
    real tables, seeded slot contents; the plain version on the card):
    0 mismatches; prints each real filter / fm item's group count;
    times each kernel and each plain version at that shape;
-5. slice: the slice song (stereo, 44.1 kHz, 10 s, superblocks of
+5. capture: the graph-capture probe: a seeded filter12 item and a
+   seeded fm item, whose kernels launch cooperatively
+   (``cudaLaunchCooperativeKernel``), captured into a CUDA graph,
+   replayed, and held against the same launch made eagerly;
+6. slice: the slice song (stereo, 44.1 kHz, 10 s, superblocks of
    2752x64 frames) through ``DeviceRenderer(device=DEVICE).render``
-   against the native renderer, bit for bit, with no native bridging
-   and with oscillator launches; then 2 s mono the same way;
-6. effects: the effects song, stereo 10 s, the same way, with launches
+   (profile pass, one CUDA graph, the pipeline) against the native
+   renderer, bit for bit, with no native bridging and with oscillator
+   launches; then 2 s mono the same way;
+7. effects: the effects song, stereo 10 s, the same way, with launches
    of the oscillator, the dense fbdelay, the filter and the fm kernels;
-7. legacy: the late fbdelay song, mono, the same way, with launches of
-   the legacy fbdelay kernel.
+8. legacy: the late fbdelay song, mono, the same way, with launches of
+   the legacy fbdelay kernel;
+9. pipeline: the same four renders with ``chain_dispatch=4`` (chains of
+   4 superblocks per graph launch), the same checks, and the effects
+   song in quarter superblocks so that whole chains run; then the
+   synchronous render (``run`` per superblock) and the pipelined one
+   of the slice and effects songs timed in alternating pairs (3 each),
+   with x realtime, the card's idle share (graph launches bracketed by
+   CUDA events) and host seconds by phase; then ``torch.profiler`` over
+   a pipelined render of the effects and late fbdelay songs must show
+   each kernel's name among the graph's device kernels;
+10. serve: ``serve.render_multiplexed`` of four streams (two slice, two
+   effects with different arguments, batch 2) and ``serve.render_many``
+   of two (slice, effects), each stream bit for bit against its solo
+   native render, every kernel of the path launched; aggregate x
+   realtime.
 
 Every kernel launch counter is set to 0 just before each render and
-read just after.  Then one JSON line with the kernels' numbers and,
-last, the ``{"ok": true, "device": ...}`` line.  Any failure raises,
-and the exit code is not 0.  Needs one card; exits non-zero without
-one.
+read just after; a graph launch adds the launches captured in it.
+Then one JSON line with the kernels' numbers and, last, the
+``{"ok": true, "device": ...}`` line.  Any failure raises, and the exit
+code is not 0.  Needs one card; exits non-zero without one.
+``--phases a,b`` runs only the named phases of 5-10 after device,
+build (for quick checks; the full run takes no argument).
 """
 
+import argparse
 import itertools
 import json
 import os
@@ -65,6 +87,7 @@ from audiality2_tpu_torch.cuda import osc_kernel as OK
 from audiality2_tpu_torch.cuda.mixer import KERNEL_WRAPPERS
 from audiality2_tpu_torch.engine.device_render import (DeviceRenderer,
                                                        SUPERBLOCK_FRAMES)
+from audiality2_tpu_torch import serve
 from audiality2_tpu_torch.native import NativeRenderer
 from audiality2_tpu_torch.songs import SONGS
 
@@ -119,7 +142,7 @@ def record(name, source, replaces, ms, plain_ms, nbytes, nops, max_err,
            **extra):
     bms, by = bound(nbytes, nops)
     rec = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, "launches": 0, "max_abs_err": max_err,
+           "replaces": replaces, "max_abs_err": max_err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
            "bound_by": by, "library_ms": None}
     rec.update(extra)
@@ -140,14 +163,38 @@ def mismatches(pairs):
     return bad, err
 
 
-def open_song(song, channels, renderer, **kw):
+def open_song(song, channels, renderer, args=(), **kw):
     src, program = SONGS[song]
     i = a2.open_engine(SR, 4096, channels, batched=False)
     s = i.get(i.load_string(src, song), program)
     r = renderer(i, channels=channels, **kw)
     r.timestamp_reset()
-    r.start(0, s)
+    r.start(0, s, *args)
     return r
+
+
+def native_render(song, channels, frames, args=(), sb=SUPERBLOCK_FRAMES):
+    """The native renderer over the same whole superblocks of `sb` frames
+    as the device path (a ragged last fragment would bend its ramps off
+    the device path's full-fragment record), trimmed to `frames`."""
+    nat = open_song(song, channels, NativeRenderer, args)
+    want = np.concatenate(
+        [nat.run(sb) for _ in range(-(-frames // sb))], axis=1)[:, :frames]
+    nat.close()
+    return want
+
+
+def zero_launches():
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+    FL.filter_call.kind_launches = dict.fromkeys(FL.KINDS, 0)
+
+
+def read_launches():
+    launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    launches.update(("filter_" + k, n)
+                    for k, n in FL.filter_call.kind_launches.items())
+    return launches
 
 
 def first_program(song, channels):
@@ -550,56 +597,50 @@ def phase_tail():
 # renders against native
 # ---------------------------------------------------------------
 
-def render_check(song, channels, seconds, label, need):
-    """Renders `song` through the port and natively over the same
-    superblocks; checks bit equality, no bridging, and a launch of each
-    kernel in `need`.  Returns ({kernel: launches}, x realtime,
-    timings, wall s)."""
+def render_check(song, channels, seconds, label, need,
+                 sb=SUPERBLOCK_FRAMES, **kw):
+    """Renders `song` through the port in superblocks of `sb` frames and
+    natively over the same superblocks; checks bit equality, no
+    bridging, and a launch of each kernel in `need`.  kw go to the
+    DeviceRenderer.  Returns ({kernel: launches}, x realtime, timings,
+    wall s, graph launches)."""
     frames = int(seconds * SR)
-    # native renders the same superblocks (a ragged last fragment would
-    # bend its ramps off the device path's full-fragment record)
-    nat = open_song(song, channels, NativeRenderer)
-    want = np.concatenate(
-        [nat.run(SUPERBLOCK_FRAMES)
-         for _ in range(-(-frames // SUPERBLOCK_FRAMES))], axis=1)[:, :frames]
-    nat.close()
-    r = open_song(song, channels, DeviceRenderer, device=DEVICE)
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
-    FL.filter_call.kind_launches = dict.fromkeys(FL.KINDS, 0)
+    want = native_render(song, channels, frames, sb=sb)
+    r = open_song(song, channels, DeviceRenderer, device=DEVICE, **kw)
+    r.wait_device()
+    zero_launches()
     t0 = time.perf_counter()
-    out = r.render(frames, bufsize=SUPERBLOCK_FRAMES)
+    out = r.render(frames, bufsize=sb)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
-    launches.update(("filter_" + k, n)
-                    for k, n in FL.filter_call.kind_launches.items())
-    fell_back = r.fell_back
+    launches = read_launches()
+    fell_back, bridged = r.fell_back, r.bridged_frames
     timings = dict(r.timings)
+    replays = r.mixer.replays
     r.close()
     check(out.shape == (channels, frames) and out.dtype == np.int32,
           "%s: output shape %s" % (label, out.shape))
     check(np.abs(out).max() > 0, "%s: silent output" % label)
     check(not fell_back, "%s: bridged natively" % label)
+    check(bridged == 0, "%s: %d frames bridged natively" % (label, bridged))
     for k in need:
         check(launches[k] > 0, "%s: the %s kernel never launched"
               % (label, k))
     bad = int((out != want).sum())
     check(bad == 0, "%s: %d samples differ from native" % (label, bad))
-    return launches, seconds / dt, timings, dt
+    return launches, seconds / dt, timings, dt, replays
 
 
 def split(tm):
-    return "record %.3f, build %.3f, mix %.3f, fetch %.3f" \
-        % (tm["record"], tm["build"], tm["mix"], tm["fetch"])
+    return ", ".join("%s %.4f" % kv for kv in tm.items())
 
 
 def phase_slice():
     t0 = time.perf_counter()
-    launches, xrt, tm, dt = render_check("slice", 2, 10.0, "slice stereo "
-                                         "10 s", ["osc_rows"])
-    mono, mono_xrt, _, _ = render_check("slice", 1, 2.0, "slice mono 2 s",
-                                        ["osc_rows"])
+    launches, xrt, tm, dt, _ = render_check("slice", 2, 10.0, "slice "
+                                            "stereo 10 s", ["osc_rows"])
+    mono, mono_xrt, _, _, _ = render_check("slice", 1, 2.0,
+                                           "slice mono 2 s", ["osc_rows"])
     phase("slice", t0, "stereo 10 s == native, %.1f x realtime (%.3f s: "
           "%s), %d oscillator launches; mono 2 s == native, %.1f x "
           "realtime, %d launches"
@@ -610,7 +651,7 @@ def phase_slice():
 
 def phase_effects():
     t0 = time.perf_counter()
-    launches, xrt, tm, dt = render_check(
+    launches, xrt, tm, dt, _ = render_check(
         "effects", 2, 10.0, "effects stereo 10 s",
         ["osc_rows", "fbdelay_dense", "filter", "fm"])
     phase("effects", t0, "stereo 10 s == native, %.1f x realtime (%.3f s: "
@@ -620,7 +661,7 @@ def phase_effects():
 
 def phase_legacy():
     t0 = time.perf_counter()
-    launches, xrt, tm, dt = render_check(
+    launches, xrt, tm, dt, _ = render_check(
         "late_fbdelay", 1, 1.4, "late fbdelay mono 1.4 s",
         ["fbdelay_legacy"])
     phase("legacy", t0, "mono 1.4 s == native, %.1f x realtime (%.3f s: "
@@ -628,26 +669,305 @@ def phase_legacy():
     return launches
 
 
-def main():
+# ---------------------------------------------------------------
+# graphs: the capture probe, the pipelined render, serving
+# ---------------------------------------------------------------
+
+# each kernel's name in the profiler's device trace
+KERNEL_NAMES = {"osc_rows": "osc_rows_kernel",
+                "fbdelay_dense": "fbd_dense_kernel",
+                "fbdelay_legacy": "fbd_legacy_kernel",
+                "filter": "filter_kernel", "fm": "fm_kernel"}
+# the kernels of each song's path
+PATH_KERNELS = {"slice": ["osc_rows"],
+                "effects": ["osc_rows", "fbdelay_dense", "filter", "fm"],
+                "late_fbdelay": ["fbdelay_legacy"]}
+
+
+def capture_probe(rng):
+    """One filter12 and one fm item: the launch made eagerly, and
+    captured into a graph and replayed; returns the mismatches (of the
+    replay, and of the capture, which must launch nothing)."""
+    bad = 0
+    sine = on(DEVICE, FM.sine_pairs())[0]
+    items = []
+    slots, arr, state = FL.seeded_item(rng, "f12", 2, 2, 24, 6, nslot=20)
+    sig = (2, 2, True, (0, 1), (1, 0))
+    items.append((slots, arr, state, FL.groups(arr, sig),
+                  lambda s, a, st, b, sig=sig: FL.filter_call(
+                      s, "f12", sig, a, st, b)))
+    slots, arr, state = FM.seeded_item(rng, 514, 16, 5, nslot=20)
+    sig = (514, False, 0)
+    items.append((slots, arr, state, FM.groups(arr, sig),
+                  lambda s, a, st, b, sig=sig: FM.fm_call(
+                      s, sig, a, st, sine, b)))
+    for slots, arr, state, bounds, call in items:
+        b = torch.as_tensor(FL.pack_bounds(bounds, arr.shape[0]),
+                            device=DEVICE)
+        s_e, a, st_e = on(DEVICE, slots, arr, state)
+        call(s_e, a, st_e, b)
+        s_g, st_g = on(DEVICE, slots, state)
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            g.capture_begin(capture_error_mode="relaxed")
+            try:
+                call(s_g, a, st_g, b)
+            finally:
+                g.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        # capturing launches nothing
+        bad += mismatches([(s_g, on(DEVICE, slots)[0])])[0]
+        g.replay()
+        torch.cuda.synchronize()
+        bad += mismatches([(s_e, s_g), (st_e, st_g)])[0]
+    return bad
+
+
+def phase_capture():
+    """Whether a CUDA graph captures the kernels' cooperative launches
+    (cudaLaunchCooperativeKernel, csrc/stage_common.cuh): a seeded
+    filter12 and fm item captured, replayed and held against the same
+    launch made eagerly."""
+    t0 = time.perf_counter()
+    bad = capture_probe(np.random.default_rng(11))
+    check(bad == 0, "captured cooperative launches: %d mismatches against "
+          "the eager launch" % bad)
+    phase("capture", t0, "cudaLaunchCooperativeKernel (filter12, fm) "
+          "captured into a CUDA graph; its replay equal to the eager "
+          "launch")
+    return "captured; replay equal to the eager launch"
+
+
+def timed_render(song, channels, frames, pipelined):
+    """One fresh render, device launches timed: (wall s, timings, device
+    busy s, graph replays, captures)."""
+    r = open_song(song, channels, DeviceRenderer, device=DEVICE,
+                  chain_dispatch=4)
+    r.wait_device()
+    r.mixer.time_device = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if pipelined:
+        out = r.render(frames, bufsize=SUPERBLOCK_FRAMES)
+    else:
+        out = np.concatenate(
+            [r.run(SUPERBLOCK_FRAMES)
+             for _ in range(-(-frames // SUPERBLOCK_FRAMES))],
+            axis=1)[:, :frames]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = r.mixer.device_seconds()
+    check(not r.fell_back and r.bridged_frames == 0,
+          "%s timing render bridged natively" % song)
+    res = (wall, dict(r.timings), busy, r.mixer.replays, r.mixer.captures,
+           r.mixer.capture_s, out)
+    r.close()
+    return res
+
+
+def profiler_check():
+    """torch.profiler over a pipelined render of the effects and late
+    fbdelay songs: every kernel of their paths shows by name among the
+    device kernels (graph replays included).  Returns {kernel: device
+    ms}."""
+    r1 = open_song("effects", 2, DeviceRenderer, device=DEVICE,
+                   chain_dispatch=4)
+    r2 = open_song("late_fbdelay", 1, DeviceRenderer, device=DEVICE,
+                   chain_dispatch=4)
+    r1.wait_device()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        r1.render(2 * SUPERBLOCK_FRAMES, bufsize=SUPERBLOCK_FRAMES)
+        r2.render(int(1.4 * SR), bufsize=SUPERBLOCK_FRAMES)
+        torch.cuda.synchronize()
+    r1.close()
+    r2.close()
+    seen = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        for k, name in KERNEL_NAMES.items():
+            if name in e.key:
+                seen[k] = seen.get(k, 0.0) + us * 1e-3
+    missing = [k for k in KERNEL_NAMES if k not in seen]
+    check(not missing, "the profiler saw no %s kernel in the graph "
+          "replays" % missing)
+    return seen
+
+
+def phase_pipeline():
+    """The songs through render(chain_dispatch=4); the synchronous and
+    the pipelined render timed in alternating pairs; the profiler check.
+    Returns ({path: launches}, timing summary)."""
+    t0 = time.perf_counter()
+    paths = {}
+    notes = []
+    # the last: quarter superblocks, 12 of them, so that whole chains of
+    # 4 run (the 10 s songs have 3 superblocks of 2752x64 frames)
+    for song, ch, secs, sb in (
+            ("slice", 2, 10.0, SUPERBLOCK_FRAMES),
+            ("slice", 1, 2.0, SUPERBLOCK_FRAMES),
+            ("effects", 2, 10.0, SUPERBLOCK_FRAMES),
+            ("late_fbdelay", 1, 1.4, SUPERBLOCK_FRAMES),
+            ("effects", 2, 10.0, SUPERBLOCK_FRAMES // 4)):
+        label = "%s %s %.1f s chain 4%s" % (
+            song, "stereo" if ch == 2 else "mono", secs,
+            "" if sb == SUPERBLOCK_FRAMES else ", %d-frame superblocks" % sb)
+        launches, xrt, tm, dt, replays = render_check(
+            song, ch, secs, label, PATH_KERNELS[song], sb=sb,
+            chain_dispatch=4)
+        if sb != SUPERBLOCK_FRAMES:
+            nsb = -(-int(secs * SR) // sb)
+            check(replays < nsb, "%s: %d graph launches for %d superblocks"
+                  ": no chain ran" % (label, replays, nsb))
+        paths[label] = launches
+        notes.append("%s == native, %.1f x realtime, %d graph launches, "
+                     "kernel launches %s" % (label, xrt, replays, json.dumps(
+                         {k: v for k, v in launches.items() if v})))
+    timing = {}
+    for song in ("slice", "effects"):
+        frames = int(10.0 * SR)
+        want = native_render(song, 2, frames)
+        runs = {"sync": [], "pipelined": []}
+        for order in (("sync", "pipelined"), ("pipelined", "sync"),
+                      ("sync", "pipelined")):
+            for mode in order:
+                wall, tm, busy, replays, caps, cap_s, out = timed_render(
+                    song, 2, frames, mode == "pipelined")
+                check(int((out != want).sum()) == 0,
+                      "%s %s timing render differs from native"
+                      % (song, mode))
+                runs[mode].append({
+                    "wall_s": wall, "x_realtime": 10.0 / wall,
+                    "device_busy_s": busy, "idle_share": 1 - busy / wall,
+                    "graph_launches": replays, "captures": caps,
+                    "capture_s": cap_s, "phases_s": tm})
+        timing[song] = runs
+        for mode, rs in runs.items():
+            notes.append("%s %s: x realtime %s, idle %s, captures %d (%.3f "
+                         "s), phases of the first: %s" % (
+                             song, mode, " ".join(
+                                 "%.1f" % r["x_realtime"] for r in rs),
+                             " ".join("%.3f" % r["idle_share"] for r in rs),
+                             rs[0]["captures"], rs[0]["capture_s"],
+                             split(rs[0]["phases_s"])))
+    seen = profiler_check()
+    notes.append("profiler, device ms by kernel: %s" % ", ".join(
+        "%s %.3f" % kv for kv in seen.items()))
+    phase("pipeline", t0, " | ".join(notes))
+    return paths, timing
+
+
+def phase_serve():
+    """render_multiplexed of four streams (batch 2) and render_many of
+    two, each stream against its solo native render."""
+    t0 = time.perf_counter()
+    frames = int(10.0 * SR)
+    notes = []
+    results = {}
+    for mode, specs in (
+            ("multiplexed", [("slice", ()), ("slice", ()),
+                             ("effects", ()), ("effects", (0.25,))]),
+            ("many", [("slice", ()), ("effects", (0.25,))])):
+        jobs = []
+        for song, args in specs:
+            src, program = SONGS[song]
+            i = a2.open_engine(SR, 4096, 2, batched=False)
+            jobs.append(serve.StreamJob(
+                i, i.get(i.load_string(src, song), program), frames,
+                args=args, channels=2))
+        zero_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if mode == "multiplexed":
+            serve.render_multiplexed(jobs, bufsize=SUPERBLOCK_FRAMES,
+                                     batch=2)
+        else:
+            serve.render_many(jobs, bufsize=SUPERBLOCK_FRAMES)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches = read_launches()
+        for k in PATH_KERNELS["effects"]:
+            check(launches[k] > 0, "serve %s: the %s kernel never "
+                  "launched" % (mode, k))
+        for j, (song, args) in zip(jobs, specs):
+            check(j.error is None and not j.renderer.fell_back,
+                  "serve %s: %s %s bridged natively" % (mode, song, args))
+            bad = int((j.output != native_render(song, 2, frames,
+                                                  args)).sum())
+            check(bad == 0, "serve %s: %s %s: %d samples differ from its "
+                  "solo native render" % (mode, song, args, bad))
+        agg = len(jobs) * 10.0 / dt
+        results[mode] = {"streams": len(jobs), "wall_s": dt,
+                         "aggregate_x_realtime": agg, "launches": launches}
+        notes.append("%s: %d streams x 10 s stereo == solo native, %.3f s "
+                     "= %.1f x realtime aggregate; launches %s"
+                     % (mode, len(jobs), dt, agg, json.dumps(
+                         {k: v for k, v in launches.items() if v})))
+    phase("serve", t0, " | ".join(notes))
+    return results
+
+
+PHASES = ("capture", "slice", "effects", "legacy", "pipeline", "serve")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(("kernel", "tail")
+                                                 + PHASES))
+    a = ap.parse_args(argv)
+    want = set(a.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     phase_device()
     phase_build()
-    kernels = [phase_kernel()] + phase_tail()
-    paths = {"osc_rows": phase_slice()}
-    effects = phase_effects()
-    legacy = phase_legacy()
-    for k in ("fbdelay_dense", "filter", "fm"):
-        paths[k] = effects
-    paths["fbdelay_legacy"] = legacy
+    kernels = []
+    if "kernel" in want:
+        kernels.append(phase_kernel())
+    if "tail" in want:
+        kernels += phase_tail()
+    extra = {}
+    if "capture" in want:
+        extra["capture"] = phase_capture()
+    paths = {}
+    if "slice" in want:
+        paths["osc_rows"] = phase_slice()
+    if "effects" in want:
+        effects = phase_effects()
+        for k in ("fbdelay_dense", "filter", "fm"):
+            paths[k] = effects
+        check(all(effects["filter_" + k] for k in FL.KINDS),
+              "effects: a filter kind never launched: %s"
+              % json.dumps(effects))
+    if "legacy" in want:
+        paths["fbdelay_legacy"] = phase_legacy()
+    if "pipeline" in want:
+        extra["pipeline_launches"], extra["timing"] = phase_pipeline()
+    if "serve" in want:
+        extra["serve"] = phase_serve()
+    # launches of the render phases that ran (all of them without
+    # --phases); a kind without a count of its own (fm) takes its
+    # kernel's
     for rec in kernels:
-        rec["launches"] = paths[rec["name"]][rec["name"]]
-        for kind, k in rec.get("kinds", {}).items():
-            k["launches"] = effects.get("filter_" + kind,
-                                        effects[rec["name"]])
-    check(all(effects["filter_" + k] for k in FL.KINDS),
-          "effects: a filter kind never launched: %s" % json.dumps(effects))
+        own = paths.get(rec["name"])
+        if own is not None:
+            rec["launches"] = own[rec["name"]]
+            for kind, k in rec.get("kinds", {}).items():
+                k["launches"] = own.get("filter_" + kind, own[rec["name"]])
+        if "pipeline_launches" in extra:
+            rec["launches_by_path"] = {
+                p: l[rec["name"]]
+                for p, l in extra["pipeline_launches"].items()}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
+              "w") as f:
+        json.dump({"kernels": kernels, **extra}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,11 @@ without JAX.
 package's JAX-free modules (compiler, engine state, objects, units,
 native bindings): a change on either side shows here.  In a fresh
 interpreter with ``jax`` and ``audiality2_tpu`` blocked on
-``sys.meta_path``, the port (its stage-tail kernel modules and
-``profile_render`` included) imports, renders the slice and effects
-songs briefly on the CPU, and ``chip_smoke.py``'s imports resolve."""
+``sys.meta_path``, the port (its stage-tail kernel modules,
+``profile_render`` and ``serve`` included) imports, renders the slice
+and effects songs briefly on the CPU (a pipelined, chained render with
+a sink and a served stream among them), and ``chip_smoke.py``'s
+imports resolve."""
 
 import os
 import subprocess
@@ -71,7 +73,7 @@ from audiality2_tpu_torch.cuda import build, fbdelay, filter, fm, mixer
 from audiality2_tpu_torch.engine.device_render import DeviceRenderer
 from audiality2_tpu_torch.native import NativeRenderer
 from audiality2_tpu_torch.songs import EFFECTS_SONG, SLICE_SONG
-from audiality2_tpu_torch import profile_render
+from audiality2_tpu_torch import profile_render, render_ab
 def open_(cls, src, **kw):
     i = a2.open_engine(44100, 4096, 2, batched=False)
     s = i.get(i.load_string(src, "s"), "Song")
@@ -79,11 +81,25 @@ def open_(cls, src, **kw):
     r.timestamp_reset()
     r.start(0, s)
     return r
+from audiality2_tpu_torch import serve
 for src in (SLICE_SONG, EFFECTS_SONG):
     want = open_(NativeRenderer, src).run(4096)
     r = open_(DeviceRenderer, src, device="cpu")
     got = r.render(4096)
     assert (got == want).all() and not r.fell_back and np.abs(got).max() > 0
+# the pipelined render: profile pass, chained dispatch, a sink
+nat = open_(NativeRenderer, SLICE_SONG)
+want = np.concatenate([nat.run(4096) for _ in range(3)], axis=1)
+r = open_(DeviceRenderer, SLICE_SONG, device="cpu", chain_dispatch=2)
+got = []
+assert r.render(3 * 4096, bufsize=4096,
+                sink=lambda b, n: got.append(np.stack(b))) is None
+assert (np.concatenate(got, axis=1) == want).all() and not r.fell_back
+i = a2.open_engine(44100, 4096, 2, batched=False)
+job = serve.StreamJob(i, i.get(i.load_string(SLICE_SONG, "s"), "Song"),
+                      3 * 4096, channels=2)
+serve.render_multiplexed([job], bufsize=4096, device="cpu")
+assert (job.output == want).all()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "audiality2_tpu")]
 assert not bad, bad
 print("ok")
