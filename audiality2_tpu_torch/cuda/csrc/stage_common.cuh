@@ -33,9 +33,9 @@ __device__ __forceinline__ int32_t low32(int64_t v) {
     return (int32_t)(uint32_t)(uint64_t)v;
 }
 
-// A kernel launched by launch_grid runs one block per SM (as many as
-// fit), all resident at once: the thread's index and the thread count
-// over the whole grid, and a barrier over the whole grid.
+// A kernel launched by launch_grid runs its blocks (by default one per
+// SM, as many as fit) all resident at once: the thread's index and the
+// thread count over the whole grid, and a barrier over the whole grid.
 __device__ __forceinline__ int grid_tid() {
     return blockIdx.x * blockDim.x + threadIdx.x;
 }
@@ -51,12 +51,10 @@ __device__ __forceinline__ void grid_sync() {
     cooperative_groups::this_grid().sync();
 }
 
-// One cooperative launch of kernel(p) with `threads` per block and as
-// many blocks as can be resident together on the device; returns the
-// CUDA error code (0 for none).
-template <typename P>
-int launch_grid(void (*kernel)(P), const P& p, int threads,
-                cudaStream_t stream) {
+// How many blocks of `kernel`, `threads` each, can be resident together
+// on the device (into *n); returns the CUDA error code (0 for none).
+template <typename K>
+int resident_blocks(K kernel, int threads, int* n) {
     int dev = 0, sms = 0, per = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -65,12 +63,25 @@ int launch_grid(void (*kernel)(P), const P& p, int threads,
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
                                                           threads, 0);
-    if (e != cudaSuccess) return (int)e;
-    if (per < 1) return (int)cudaErrorLaunchOutOfResources;
+    *n = sms * per;
+    return (int)e;
+}
+
+// One cooperative launch of kernel(p) with `threads` per block and
+// `blocks` blocks (0: as many as can be resident together on the
+// device); returns the CUDA error code (0 for none).
+template <typename P>
+int launch_grid(void (*kernel)(P), const P& p, int threads,
+                cudaStream_t stream, int blocks = 0) {
+    if (blocks == 0) {
+        const int e = resident_blocks(kernel, threads, &blocks);
+        if (e) return e;
+    }
+    if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
     P arg = p;
     void* args[] = {&arg};
-    e = cudaLaunchCooperativeKernel((void*)kernel, dim3(sms * per),
-                                    dim3(threads), args, 0, stream);
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        (void*)kernel, dim3(blocks), dim3(threads), args, 0, stream);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 

@@ -7,11 +7,12 @@ superblock.py``.  Only the cross-feedback tap is serial, and only
 across chunk steps (the chunk rule: C*64 <= fb, so no tap reads a
 sample written in its own step); ``fbd_legacy_call`` /
 ``fbd_dense_call`` run that loop, as the kernels in
-``csrc/fbdelay_kernel.cu`` for CUDA tensors and as the plain versions
-``fbd_legacy_torch`` / ``fbd_dense_torch`` (the same chunk loop,
-vectorised within a step) for CPU tensors.  The reader taps, the dry
-path and the emit are elementwise torch ops in ``apply_fbdelay`` /
-``apply_fbdelay_dense``.
+``csrc/fbdelay_kernel.cu`` for CUDA tensors (dense: one thread per
+residue chain t mod fb; legacy: the chunk steps over one cooperative
+grid) and as the plain versions ``fbd_legacy_torch`` /
+``fbd_dense_torch`` (the chunk loop, vectorised within a step) for CPU
+tensors.  The reader taps, the dry path and the emit are elementwise
+torch ops in ``apply_fbdelay`` / ``apply_fbdelay_dense``.
 
 Unlike the pure JAX functions these update their arguments in place:
 ``slots`` gets the stage's output, and the legacy ring is advanced in
@@ -91,12 +92,12 @@ def fbd_dense_torch(x, g, buf, fb, C):
 def _bind(lib):
     lib.a2_fbd_legacy.restype = ctypes.c_int
     lib.a2_fbd_legacy.argtypes = (
-        [ctypes.c_void_p] * 6                  # x arr starts ring ofb wbuf
+        [ctypes.c_void_p] * 5                  # x arr starts ring ofb
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])   # NS C; stream
     lib.a2_fbd_dense.restype = ctypes.c_int
     lib.a2_fbd_dense.argtypes = (
         [ctypes.c_void_p] * 4                  # x g buf ofb
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])   # npad CH fb; stream
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])   # npad fb; stream
 
 
 def _load():
@@ -123,14 +124,12 @@ def fbd_legacy_call(x, arr, starts, ring, C):
     ofb = torch.empty((2, NS, FRAG), dtype=torch.int32, device=dev)
     if NS == 0:
         return ofb
-    wbuf = torch.empty_like(ofb)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.a2_fbd_legacy(x.data_ptr(), arr.data_ptr(),
                                 starts.data_ptr(), ring.data_ptr(),
-                                ofb.data_ptr(), wbuf.data_ptr(), NS, C,
-                                stream)
+                                ofb.data_ptr(), NS, C, stream)
     build.launch_check(err, "fbdelay legacy")
     build.count_launch(fbd_legacy_call)
     return ofb
@@ -149,7 +148,8 @@ def fbd_dense_call(x, g, buf, fb, C):
     CH = C * FRAG
     dev = x.device
     what = "fbd_dense_call"
-    # the kernel's one phase per step needs every tap before its step
+    # with CH <= fb the chunked loop is the sequential recurrence, which
+    # the kernel walks as fb residue chains; taps reach back FBD_TAIL
     if dev.type != "cuda" or npad % CH or not CH <= fb <= FBD_TAIL:
         raise ValueError("%s: device %s, npad %d, chunk %d, fb %d"
                          % (what, dev, npad, C, fb))
@@ -164,7 +164,7 @@ def fbd_dense_call(x, g, buf, fb, C):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.a2_fbd_dense(x.data_ptr(), g.data_ptr(), buf.data_ptr(),
-                               ofb.data_ptr(), npad, CH, fb, stream)
+                               ofb.data_ptr(), npad, fb, stream)
     build.launch_check(err, "fbdelay dense")
     build.count_launch(fbd_dense_call)
     return ofb
@@ -241,8 +241,9 @@ def apply_fbdelay(slots, sig, arr, ring, bufpos):
 
 
 def fbd_dense_inputs(slots, sig, arr, F):
-    """The dense loop's inputs: (x int32 [2, NPad], per-sample gains
-    int64 [N, 4] (dry, fb, left, right)), padded to whole chunks."""
+    """The dense loop's inputs: (x int32 [2, NPad], g int32 [NPad] the
+    feedback gain per sample, per-sample gains int64 [N, 4] (dry, fb,
+    left, right)), x and g padded with zeros to whole chunks."""
     stereoin, C = sig[0], sig[3]
     N = F * FRAG
     CH = C * FRAG
@@ -261,7 +262,9 @@ def fbd_dense_inputs(slots, sig, arr, F):
     mark.index_add_(0, starts.clamp(0, N), torch.ones_like(starts))
     sid = torch.cumsum(mark[:N], 0) - 1
     gains = a[sid.clamp(min=0), C_DRY:C_RG + 1]
-    return x, gains
+    g = torch.zeros(npad, dtype=torch.int32, device=dev)
+    g[:N] = gains[:, 1].to(torch.int32)
+    return x, g, gains
 
 
 def apply_fbdelay_dense(slots, sig, arr, tail, F):
@@ -276,10 +279,8 @@ def apply_fbdelay_dense(slots, sig, arr, tail, F):
     D = FBD_TAIL
     dev = slots.device
     a = arr.to(torch.int64)
-    x, gains = fbd_dense_inputs(slots, sig, arr, F)
+    x, g, gains = fbd_dense_inputs(slots, sig, arr, F)
     npad = x.shape[1]
-    g = torch.zeros(npad, dtype=torch.int32, device=dev)
-    g[:N] = gains[:, 1].to(torch.int32)
     buf = torch.empty((2, D + npad), dtype=torch.int32, device=dev)
     buf[:, :D] = tail
     ofb = fbd_dense_call(x, g, buf, fb, C)[:, :N].to(torch.int64)
@@ -392,15 +393,43 @@ def seeded_dense(rng, F=12, fb=None, nslot=None):
         (fb, ld, rd)
 
 
+def seeded_dense_loop(rng, F, fb, dev):
+    """Seeded inputs of the dense loop over F fragments at feedback
+    delay fb, on `dev`, as apply_fbdelay_dense derives them from
+    seeded_dense's table: (x int32 [2, NPad], g int32 [NPad], tail int32
+    [2, 2^17], chunk)."""
+    slots, arr, tail, par = seeded_dense(rng, F, fb=fb)
+    C = chunk_for(fb)
+    x, g, _ = fbd_dense_inputs(torch.as_tensor(slots, device=dev),
+                               (True, True, True, C) + par,
+                               torch.as_tensor(arr, device=dev), F)
+    return x, g, torch.as_tensor(tail, device=dev), C
+
+
+def seeded_legacy_loop(rng, C, nslices, dev):
+    """Seeded inputs of the legacy loop over `nslices` slices in chunks
+    of C, on `dev`, as apply_fbdelay derives them from seeded_legacy's
+    table: (x int32 [2, NS, 64], arr int32 [NS, 13], starts int32 [NS],
+    ring int32 [2, 2^20])."""
+    slots, arr, ring, bufpos = seeded_legacy(rng, C, nslices=nslices)
+    a = torch.as_tensor(arr, device=dev)
+    x, starts = fbd_legacy_inputs(torch.as_tensor(slots, device=dev),
+                                  (True, True, True, C), a, bufpos)
+    return x, a, (starts & _M).to(torch.int32), \
+        torch.as_tensor(ring, device=dev)
+
+
 # ---------------------------------------------------------------
 # the work a feedback loop must do, for its bound
 # ---------------------------------------------------------------
 
-# int32 operations per sample and channel, counted by hand from
-# csrc/fbdelay_kernel.cu (index arithmetic, loads, the 64-bit product
-# as 2, shift, add, stores, loop; legacy: both phases)
-OPS_LEGACY = 45
-OPS_DENSE = 20
+# int32 operations per sample and channel that the function needs,
+# whatever computes it: the 64-bit product of tap and gain (2 words),
+# its 64-bit arithmetic shift (2) and the add into the ring (1); the
+# legacy form also computes its tap's ring position (start + n - fb,
+# masked: 3), where the dense form's is fixed
+OPS_DENSE = 5
+OPS_LEGACY = OPS_DENSE + 3
 
 
 def legacy_work(arr):

@@ -1,26 +1,44 @@
-"""The filter and fm kernels against an earlier form of them, on the card.
+"""The stage-tail kernels against an earlier form of them, on the card.
 
-    python3 -m audiality2_tpu_torch.tail_ab --old-csrc DIR [--reps 3]
+    python3 -m audiality2_tpu_torch.tail_ab --old-csrc DIR \\
+        [--kernels fbdelay | filter,fm] [--reps 10]
 
-DIR holds an earlier ``filter_kernel.cu``, ``fm_kernel.cu`` and
-``stage_common.cuh`` with the one-slice-step C interface (one block,
-three synchronised phases per slice step, no step groups):
+DIR holds earlier kernel sources (with their ``stage_common.cuh``), for
+instance ``git archive <commit> audiality2_tpu_torch/cuda/csrc``
+unpacked into a directory that ``.gitignore`` lists.  ``--kernels``
+names the kernels to compare:
 
-    a2_filter(slots, arr, state, scratch [K, 2, 64], S, K, kind, ni, no,
-              add, sch0, sch1, dch0, dch1, stream)
-    a2_fm(slots, arr, state, sine, scratch [K, 64], S, K, structkey,
-          add, dch, stream)
+- ``fbdelay`` (the default): DIR's ``fbdelay_kernel.cu`` with the
+  one-block C interface
 
-for instance ``git archive <commit> audiality2_tpu_torch/cuda/csrc``
-unpacked into a directory that ``.gitignore`` lists.  Builds them with
-nvcc (sm_90a) beside the current kernels, records the effects song's
-first stereo superblock, and for each of its filter12 / dcblock /
-limiter / fm items runs both forms on the same seeded slots: their
-slots and state must agree bit for bit; then times them with CUDA
-events in the order earlier, current, current, earlier (``reps``
-launches each).  Also times the host's step-group computation of the
-superblock's items.  Prints the card's name and power limit, one line
-per item, and one JSON object last.  Needs a CUDA device.
+      a2_fbd_dense(x, g, buf, ofb, npad, CH, fb, stream)
+      a2_fbd_legacy(x, arr, starts, ring, ofb, wbuf [2, NS, 64], NS, C,
+                    stream)
+
+  on the effects song's dense item and the late fbdelay song's legacy
+  item (first superblocks, seeded slots, tail and ring), and on seeded
+  full superblocks (2752x64 frames): dense at fb = 64 and fb = 2^17,
+  legacy at C = 1.  Both forms' o_fb and buffer or ring must agree.
+- ``filter`` / ``fm``: DIR's ``filter_kernel.cu`` / ``fm_kernel.cu``
+  with the one-slice-step C interface (one block, three synchronised
+  phases per slice step, no step groups):
+
+      a2_filter(slots, arr, state, scratch [K, 2, 64], S, K, kind, ni,
+                no, add, sch0, sch1, dch0, dch1, stream)
+      a2_fm(slots, arr, state, sine, scratch [K, 64], S, K, structkey,
+            add, dch, stream)
+
+  on the effects song's first superblock's filter12 / dcblock /
+  limiter / fm items, on the same seeded slots: slots and state must
+  agree.  Also times the host's step-group computation of those items.
+
+Builds the earlier sources with nvcc (sm_90a) beside the current
+kernels, then times each item's two forms in the order earlier,
+current, current, earlier (``graph_ms``: ``reps`` launches captured into
+one CUDA graph, so the host's launch rate does not hide a short
+kernel's device time).  Prints the card's name and power limit, one
+line per item and one JSON object last; exits 1 on any mismatch.
+Needs a CUDA device.
 """
 
 import argparse
@@ -36,17 +54,28 @@ import torch
 
 from . import open_engine
 from .cuda import build
+from .cuda import fbdelay as FB
 from .cuda import filter as FL
 from .cuda import fm as FM
 from .engine.device_render import DeviceRenderer, SUPERBLOCK_FRAMES
 from .songs import SONGS
 
+VP, CI = ctypes.c_void_p, ctypes.c_int
+# the earlier C interfaces: source name -> {function: argtypes}
+OLD_ARGTYPES = {
+    "fbdelay_kernel": {"a2_fbd_dense": [VP] * 4 + [CI] * 3 + [VP],
+                       "a2_fbd_legacy": [VP] * 6 + [CI] * 2 + [VP]},
+    "filter_kernel": {"a2_filter": [VP] * 4 + [CI] * 10 + [VP]},
+    "fm_kernel": {"a2_fm": [VP] * 5 + [CI] * 5 + [VP]},
+}
 
-def build_old(csrc, out_dir):
-    """nvcc of the earlier sources, both at once; returns {name: CDLL}."""
+
+def build_old(csrc, out_dir, names):
+    """nvcc of the earlier sources `names`, all at once; returns {name:
+    CDLL}."""
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name in ("filter_kernel", "fm_kernel"):
+    for name in names:
         lib = os.path.join(out_dir, "libold_%s.so" % name)
         cmd = [build._nvcc()] + build.NVCC_FLAGS + [
             "-o", lib, os.path.join(csrc, name + ".cu")]
@@ -60,10 +89,13 @@ def build_old(csrc, out_dir):
             raise RuntimeError("nvcc failed on the earlier %s.cu:\n%s"
                                % (name, out))
         libs[name] = ctypes.CDLL(lib)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs["filter_kernel"].a2_filter.argtypes = [vp] * 4 + [ci] * 10 + [vp]
-    libs["fm_kernel"].a2_fm.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        for fn, argtypes in OLD_ARGTYPES[name].items():
+            getattr(libs[name], fn).argtypes = argtypes
     return libs
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def old_filter(lib, slots, kind, sig, arr, state):
@@ -74,7 +106,7 @@ def old_filter(lib, slots, kind, sig, arr, state):
     err = lib.a2_filter(slots.data_ptr(), arr.data_ptr(), state.data_ptr(),
                         scratch.data_ptr(), S, K, FL.KINDS.index(kind), ni,
                         no, int(bool(add)), sch[0], sch[-1], dch[0],
-                        dch[-1], torch.cuda.current_stream().cuda_stream)
+                        dch[-1], _stream())
     build.launch_check(err, "earlier filter")
 
 
@@ -85,21 +117,57 @@ def old_fm(lib, slots, sig, arr, state, sine):
                           device=slots.device)
     err = lib.a2_fm(slots.data_ptr(), arr.data_ptr(), state.data_ptr(),
                     sine.data_ptr(), scratch.data_ptr(), S, K, structkey,
-                    int(bool(add)), dch,
-                    torch.cuda.current_stream().cuda_stream)
+                    int(bool(add)), dch, _stream())
     build.launch_check(err, "earlier fm")
 
 
-def event_ms(fn, reps):
+def old_fbd_dense(lib, x, g, buf, fb, C):
+    npad = x.shape[1]
+    ofb = torch.empty((2, npad), dtype=torch.int32, device=x.device)
+    err = lib.a2_fbd_dense(x.data_ptr(), g.data_ptr(), buf.data_ptr(),
+                           ofb.data_ptr(), npad, C * FB.FRAG, fb, _stream())
+    build.launch_check(err, "earlier fbdelay dense")
+    return ofb
+
+
+def old_fbd_legacy(lib, x, arr, starts, ring, C):
+    NS = arr.shape[0]
+    ofb = torch.empty((2, NS, FB.FRAG), dtype=torch.int32, device=x.device)
+    wbuf = torch.empty_like(ofb)
+    err = lib.a2_fbd_legacy(x.data_ptr(), arr.data_ptr(), starts.data_ptr(),
+                            ring.data_ptr(), ofb.data_ptr(), wbuf.data_ptr(),
+                            NS, C, _stream())
+    build.launch_check(err, "earlier fbdelay legacy")
+    return ofb
+
+
+def graph_ms(fn, reps=10, rounds=3):
+    """Device ms of one call of fn(): after an eager warm-up, `reps`
+    calls captured into one CUDA graph (their launch counts discarded),
+    the graph replayed once, then `rounds` replays timed with CUDA
+    events; the mean per call."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with build.captured_launches(), torch.cuda.stream(side):
+        g.capture_begin(capture_error_mode="relaxed")
+        try:
+            for _ in range(reps):
+                fn()
+        finally:
+            g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    g.replay()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    fn()
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(rounds):
+        g.replay()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / (rounds * reps)
 
 
 def first_program(song, channels):
@@ -114,49 +182,139 @@ def first_program(song, channels):
     return prog
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-csrc", required=True)
-    ap.add_argument("--reps", type=int, default=3)
-    a = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("tail_ab: no CUDA device", file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0].strip()
-    print(card, flush=True)
-    old = build_old(a.old_csrc, os.path.join(a.old_csrc, "build"))
-    build.build()
+def seeded_i32(gen, shape):
+    return torch.randint(-(1 << 27), 1 << 27, shape, dtype=torch.int32,
+                         device="cuda", generator=gen)
+
+
+def fbdelay_items(gen, rng):
+    """The fbdelay items: [(label, form, inputs, fb or None, chunk)],
+    form "dense" with inputs (x, g, tail), "legacy" with (x, arr,
+    starts, ring)."""
+    items = []
+    prog = first_program("effects", 2)
+    slots = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FB.FRAG))
+    for fd in prog.fbdelays:
+        C = fd["chunk"]
+        sig = (fd["stereoin"], fd["stereoout"], fd["add"], C) + fd["fbpar"]
+        x, g, _ = FB.fbd_dense_inputs(
+            slots, sig, torch.as_tensor(fd["arr"], device="cuda"), prog.F)
+        items.append(("effects dense", "dense",
+                      (x, g, seeded_i32(gen, (2, FB.FBD_TAIL))),
+                      fd["fbpar"][0], C))
+    prog = first_program("late_fbdelay", 1)
+    slots = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FB.FRAG))
+    for fd in prog.fbdelays:
+        C = fd["chunk"]
+        a = torch.as_tensor(fd["arr"], device="cuda")
+        x, starts = FB.fbd_legacy_inputs(
+            slots, (fd["stereoin"], fd["stereoout"], fd["add"], C), a,
+            12345)
+        items.append(("late legacy", "legacy",
+                      (x, a, (starts & (FB.FBD_BUFSIZE - 1)).to(torch.int32),
+                       seeded_i32(gen, (2, FB.FBD_BUFSIZE))), None, C))
+    F = SUPERBLOCK_FRAMES // FB.FRAG
+    for fb in (64, FB.FBD_TAIL):
+        x, g, tail, C = FB.seeded_dense_loop(rng, F, fb, "cuda")
+        items.append(("seeded dense fb %d" % fb, "dense", (x, g, tail), fb,
+                      C))
+    x, a, starts, ring = FB.seeded_legacy_loop(rng, 1, F, "cuda")
+    items.append(("seeded legacy C 1", "legacy", (x, a, starts, ring), None,
+                  1))
+    return items
+
+
+def fbdelay_ab(old, gen, rng, reps):
+    """Earlier and current fbdelay kernels on every item of
+    fbdelay_items; returns the item records."""
+    lib = old["fbdelay_kernel"]
+    recs = []
+    for label, form, inp, fb, C in fbdelay_items(gen, rng):
+        if form == "dense":
+            x, g, tail = inp
+            npad = x.shape[1]
+
+            def state():
+                buf = torch.empty((2, FB.FBD_TAIL + npad), dtype=torch.int32,
+                                  device="cuda")
+                buf[:, :FB.FBD_TAIL] = tail
+                return buf
+
+            def new(buf, x=x, g=g, fb=fb, C=C):
+                return FB.fbd_dense_call(x, g, buf, fb, C)
+
+            def older(buf, x=x, g=g, fb=fb, C=C):
+                return old_fbd_dense(lib, x, g, buf, fb, C)
+            shape = "npad %d, fb %d, C %d: %d links per chain (was %d " \
+                "steps)" % (npad, fb, C, -(-npad // fb), npad // (C * 64))
+        else:
+            x, a, starts, ring0 = inp
+            NS = a.shape[0]
+
+            def state(ring0=ring0):
+                return ring0.clone()
+
+            def new(ring, x=x, a=a, starts=starts, C=C):
+                return FB.fbd_legacy_call(x, a, starts, ring, C)
+
+            def older(ring, x=x, a=a, starts=starts, C=C):
+                return old_fbd_legacy(lib, x, a, starts, ring, C)
+            shape = "NS %d, C %d: %d steps" % (NS, C, NS // C)
+        res = []
+        for fn in (older, new):
+            st = state()
+            ofb = fn(st)
+            torch.cuda.synchronize()
+            res.append((ofb.cpu(), st.cpu()))
+        bad = sum(int((p != q).sum()) for p, q in zip(*res))
+        times = {"old": [], "new": []}
+        st = state()
+        for which, fn in (("old", older), ("new", new), ("new", new),
+                          ("old", older)):
+            times[which].append(graph_ms(lambda: fn(st), reps))
+        recs.append({"item": label, "form": form, "shape": shape,
+                     "mismatches": bad, "old_ms": times["old"],
+                     "new_ms": times["new"],
+                     "speedup": float(np.mean(times["old"])
+                                      / np.mean(times["new"]))})
+        print("%-20s %s: earlier %s ms, current %s ms (%.1fx), %d "
+              "mismatches" % (label, shape,
+                              " / ".join("%.4f" % t for t in times["old"]),
+                              " / ".join("%.4f" % t for t in times["new"]),
+                              recs[-1]["speedup"], bad), flush=True)
+    return recs
+
+
+def filter_fm_ab(old, gen, reps, kernels):
+    """Earlier and current filter / fm kernels on the effects song's
+    items; returns (item records, host step-group ms per run)."""
     prog = first_program("effects", 2)
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(6)
-    slots0 = torch.randint(-(1 << 27), 1 << 27,
-                           (prog.ninst * prog.F + 1, 2, FL.FRAG),
-                           dtype=torch.int32, device=dev, generator=gen)
+    slots0 = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FL.FRAG))
     sine = torch.as_tensor(FM.sine_pairs(), device=dev)
-    items = []
+    items = [fl for fl in prog.filters
+             if ("fm" if fl["kind"] == "fm" else "filter") in kernels]
     t_groups = []
     for _ in range(20):
         t0 = time.perf_counter()
-        for fl in prog.filters:
+        for fl in items:
             key = fl["key"]
             if fl["kind"] == "fm":
                 FM.groups(fl["arr"], (key[3], key[4], key[5][0]))
             else:
                 FL.groups(fl["arr"], key[3:8])
         t_groups.append((time.perf_counter() - t0) * 1e3)
-    for fl in prog.filters:
+    recs = []
+    for fl in items:
         kind, key = fl["kind"], fl["key"]
         arr = torch.as_tensor(fl["arr"], device=dev)
         S, K = arr.shape[:2]
         if kind == "fm":
             sig = (key[3], key[4], key[5][0])
             bounds = FM.groups(fl["arr"], sig)
+            b = torch.as_tensor(FL.pack_bounds(bounds, S), device=dev)
 
-            def new(s, st, sig=sig, arr=arr, b=bounds):
+            def new(s, st, sig=sig, arr=arr, b=b):
                 FM.fm_call(s, sig, arr, st, sine, b)
 
             def older(s, st, sig=sig, arr=arr):
@@ -164,8 +322,9 @@ def main(argv=None):
         else:
             sig = key[3:8]
             bounds = FL.groups(fl["arr"], sig)
+            b = torch.as_tensor(FL.pack_bounds(bounds, S), device=dev)
 
-            def new(s, st, kind=kind, sig=sig, arr=arr, b=bounds):
+            def new(s, st, kind=kind, sig=sig, arr=arr, b=b):
                 FL.filter_call(s, kind, sig, arr, st, b)
 
             def older(s, st, kind=kind, sig=sig, arr=arr):
@@ -181,13 +340,13 @@ def main(argv=None):
         times = {"old": [], "new": []}
         for which, fn in (("old", older), ("new", new), ("new", new),
                           ("old", older)):
-            times[which].append(event_ms(lambda: fn(s, st), a.reps))
+            times[which].append(graph_ms(lambda: fn(s, st), reps))
         rec = {"kind": kind, "S": int(S), "K": int(K),
                "groups": len(bounds) - 1, "mismatches": bad,
                "old_ms": times["old"], "new_ms": times["new"],
                "speedup": float(np.mean(times["old"])
                                 / np.mean(times["new"]))}
-        items.append(rec)
+        recs.append(rec)
         print("%-4s S%d K%d %d groups: earlier %s ms, current %s ms "
               "(%.1fx), %d mismatches"
               % (kind, S, K, rec["groups"],
@@ -196,11 +355,45 @@ def main(argv=None):
                  rec["speedup"], bad), flush=True)
     print("host step groups of the superblock's %d items: median %.3f ms "
           "(min %.3f, max %.3f over 20 runs)"
-          % (len(prog.filters), float(np.median(t_groups)), min(t_groups),
+          % (len(items), float(np.median(t_groups)), min(t_groups),
              max(t_groups)))
-    print(json.dumps({"card": card, "items": items,
-                      "host_groups_ms": t_groups}))
-    return 1 if any(r["mismatches"] for r in items) else 0
+    return recs, t_groups
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old-csrc", required=True)
+    ap.add_argument("--kernels", default="fbdelay",
+                    help="comma-separated: fbdelay, filter, fm")
+    ap.add_argument("--reps", type=int, default=10)
+    a = ap.parse_args(argv)
+    kernels = set(a.kernels.split(","))
+    if not kernels <= {"fbdelay", "filter", "fm"}:
+        ap.error("unknown kernels: %s" % a.kernels)
+    if not torch.cuda.is_available():
+        print("tail_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0].strip()
+    print(card, flush=True)
+    old = build_old(a.old_csrc, os.path.join(a.old_csrc, "build"),
+                    [k + "_kernel" for k in sorted(kernels)])
+    build.build()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    out = {"card": card}
+    if "fbdelay" in kernels:
+        out["fbdelay"] = fbdelay_ab(old, gen, np.random.default_rng(8),
+                                    a.reps)
+    if kernels & {"filter", "fm"}:
+        out["items"], out["host_groups_ms"] = filter_fm_ab(old, gen, a.reps,
+                                                           kernels)
+    print(json.dumps(out))
+    bad = [r for k in ("fbdelay", "items") for r in out.get(k, ())
+           if r["mismatches"]]
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -26,9 +26,12 @@ seconds:
    place over split fragments, whose disjoint windows keep one group;
    and with K = 300), and on the real items of the effects
    song's first superblock and of the late fbdelay song's (the whole
-   real tables, seeded slot contents; the plain version on the card):
-   0 mismatches; prints each real filter / fm item's group count;
-   times each kernel and each plain version at that shape;
+   real tables, seeded slot contents; the plain version on the card),
+   and on seeded full superblocks of the fbdelay loops (dense at
+   fb = 64 and fb = 2^17, legacy at C = 1): 0 mismatches; prints each
+   real filter / fm item's group count; times each kernel (device time
+   through a CUDA graph of repeated launches) and each plain version
+   at that shape;
 5. capture: the graph-capture probe: a seeded filter12 item and a
    seeded fm item, whose kernels launch cooperatively
    (``cudaLaunchCooperativeKernel``), captured into a CUDA graph,
@@ -90,6 +93,7 @@ from audiality2_tpu_torch.engine.device_render import (DeviceRenderer,
 from audiality2_tpu_torch import serve
 from audiality2_tpu_torch.native import NativeRenderer
 from audiality2_tpu_torch.songs import SONGS
+from audiality2_tpu_torch.tail_ab import graph_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 44100
@@ -330,17 +334,21 @@ def seeded_tail(rng):
     {kernel name: (variants, max abs err)}."""
     out = {}
     n = err = 0
+    # chunk delays, then taps that fall on their own step's writes
+    # (delays of 1-100 samples in chunks of 1; delays that wrap the ring
+    # forward), which the kernel reads before its barrier
     for form in itertools.product((True, False), repeat=3):
-        for C in (1, 4):
-            slots, arr, ring, bufpos = FB.seeded_legacy(rng, C)
+        for C, fb in ((1, None), (4, None), (1, 1),
+                      (4, FB.FBD_BUFSIZE - 150)):
+            slots, arr, ring, bufpos = FB.seeded_legacy(rng, C, fb=fb)
             res = []
             for dev in (DEVICE, "cpu"):
                 s, a, rg = on(dev, slots, arr, ring)
                 FB.apply_fbdelay(s, form + (C,), a, rg, bufpos)
                 res.append((s, rg))
             bad, e = mismatches(zip(*res))
-            check(bad == 0, "fbdelay legacy %s C %d: %d mismatches"
-                  % (form, C, bad))
+            check(bad == 0, "fbdelay legacy %s C %d fb %s: %d mismatches"
+                  % (form, C, fb, bad))
             n, err = n + 1, max(err, e)
     out["fbdelay_legacy"] = (n, err, None)
     n = err = 0
@@ -414,12 +422,13 @@ def seeded_tail(rng):
 
 
 def time_pair(kernel, plain, make):
-    """Kernel ms (3 timed runs after 1 warm-up on the inputs of make(),
-    which the runs keep updating) and plain ms of one run; kernel and
-    plain version over the same fresh inputs of make() must agree.
-    kernel/plain take the inputs and return the tensors to compare."""
+    """Kernel ms (graph_ms: device time per launch of a CUDA graph of
+    repeated launches on the inputs of make(), which the runs keep
+    updating) and plain ms of one run; kernel and plain version over the
+    same fresh inputs of make() must agree.  kernel/plain take the
+    inputs and return the tensors to compare."""
     warm = make()
-    ms = cuda_ms(lambda: kernel(*warm), reps=3, warmup=1)
+    ms = graph_ms(lambda: kernel(*warm))
     del warm
     kin = make()
     pin = [t.clone() for t in kin]
@@ -461,7 +470,7 @@ def real_tail(rng):
         o["bytes"] += nbytes
         o["ops"] += nops
         o["max_err"] = max(o["max_err"], err)
-        o["items"].append("%s %.3f ms (plain %.1f ms)%s"
+        o["items"].append("%s %.4f ms (plain %.1f ms)%s"
                           % (note, ms, plain_ms, "" if groups is None
                              else ", %d groups" % groups))
         if kind is not None:
@@ -475,24 +484,10 @@ def real_tail(rng):
         sig = (fd["stereoin"], fd["stereoout"], fd["add"], fd["chunk"]) \
             + fd["fbpar"]
         a = on(DEVICE, fd["arr"])[0]
-        x, gains = FB.fbd_dense_inputs(slots0, sig, a, prog.F)
-        npad = x.shape[1]
-        g = torch.zeros(npad, dtype=torch.int32, device=DEVICE)
-        g[:gains.shape[0]] = gains[:, 1].to(torch.int32)
+        x, g, _ = FB.fbd_dense_inputs(slots0, sig, a, prog.F)
         tail = seeded_i32(gen, (2, FB.FBD_TAIL))
-        fb, C = fd["fbpar"][0], fd["chunk"]
-
-        def make():
-            buf = torch.empty((2, FB.FBD_TAIL + npad), dtype=torch.int32,
-                              device=DEVICE)
-            buf[:, :FB.FBD_TAIL] = tail
-            return (buf,)
-
-        ms, pms, bad, err = time_pair(
-            lambda buf: (FB.fbd_dense_call(x, g, buf, fb, C), buf),
-            lambda buf: (FB.fbd_dense_torch(x, g, buf, fb, C), buf), make)
-        add("fbdelay_dense", "C%d x %d steps" % (C, npad // (C * 64)),
-            ms, pms, bad, err, *FB.dense_work(npad, fb))
+        add("fbdelay_dense", *dense_pair(x, g, tail, fd["fbpar"][0],
+                                         fd["chunk"]))
 
     for fl in prog.filters:
         kind, key = fl["kind"], fl["key"]
@@ -502,7 +497,7 @@ def real_tail(rng):
             sine = on(DEVICE, FM.sine_pairs())[0]
             sig = (key[3], key[4], key[5][0])
 
-            def kernel(s, a, st, sig=sig, b=FM.groups(fl["arr"], sig)):
+            def kernel(s, a, st, sig=sig, b=device_groups(FM, fl, sig)):
                 return s, FM.fm_call(s, sig, a, st, sine, b)
 
             def plain(s, a, st):
@@ -514,7 +509,7 @@ def real_tail(rng):
             sig = key[3:8]
 
             def kernel(s, a, st, kind=kind, sig=sig,
-                       b=FL.groups(fl["arr"], sig)):
+                       b=device_groups(FL, fl, sig)):
                 return s, FL.filter_call(s, kind, sig, a, st, b)
 
             def plain(s, a, st, kind=kind, sig=sig):
@@ -543,13 +538,70 @@ def real_tail(rng):
         a = on(DEVICE, fd["arr"])[0]
         x, starts = FB.fbd_legacy_inputs(slots0, sig, a, 12345)
         starts = (starts & (FB.FBD_BUFSIZE - 1)).to(torch.int32)
-        ring0 = seeded_i32(gen, (2, FB.FBD_BUFSIZE))
-        ms, pms, bad, err = time_pair(
-            lambda ring: (FB.fbd_legacy_call(x, a, starts, ring, C), ring),
-            lambda ring: (FB.fbd_legacy_torch(x, a, starts, ring, C), ring),
-            lambda: (ring0.clone(),))
-        add("fbdelay_legacy", "C%d NS%d" % (C, fd["arr"].shape[0]), ms,
-            pms, bad, err, *FB.legacy_work(fd["arr"]))
+        add("fbdelay_legacy", *legacy_pair(
+            x, a, starts, seeded_i32(gen, (2, FB.FBD_BUFSIZE)), C))
+    return out
+
+
+def dense_pair(x, g, tail, fb, C):
+    """The dense loop's kernel against its plain version on the card:
+    (note, ms, plain ms, mismatches, max err, bytes, ops)."""
+    npad = x.shape[1]
+
+    def make():
+        buf = torch.empty((2, FB.FBD_TAIL + npad), dtype=torch.int32,
+                          device=DEVICE)
+        buf[:, :FB.FBD_TAIL] = tail
+        return (buf,)
+
+    res = time_pair(
+        lambda buf: (FB.fbd_dense_call(x, g, buf, fb, C), buf),
+        lambda buf: (FB.fbd_dense_torch(x, g, buf, fb, C), buf), make)
+    note = "fb %d C%d: %d links per chain (%d chunk steps)" % (
+        fb, C, -(-npad // fb), npad // (C * FB.FRAG))
+    return (note,) + res + FB.dense_work(npad, fb)
+
+
+def legacy_pair(x, a, starts, ring0, C):
+    """The legacy loop's kernel against its plain version on the card:
+    (note, ms, plain ms, mismatches, max err, bytes, ops)."""
+    NS = a.shape[0]
+    res = time_pair(
+        lambda ring: (FB.fbd_legacy_call(x, a, starts, ring, C), ring),
+        lambda ring: (FB.fbd_legacy_torch(x, a, starts, ring, C), ring),
+        lambda: (ring0.clone(),))
+    return ("C%d NS%d: %d steps" % (C, NS, NS // C),) + res \
+        + FB.legacy_work(a.cpu().numpy())
+
+
+def device_groups(mod, fl, sig):
+    """A filter / fm item's packed step-group table on the card (what a
+    graph captures)."""
+    return torch.as_tensor(FL.pack_bounds(mod.groups(fl["arr"], sig),
+                                          fl["arr"].shape[0]),
+                           device=DEVICE)
+
+
+def full_fbdelay(rng):
+    """The fbdelay loops on seeded full superblocks (2752x64 frames):
+    dense at fb = 64 (C = 1) and fb = 2^17, legacy at C = 1, each kernel
+    against its plain version on the card; returns {kernel name: [dict of
+    shape, ms, plain_ms, bound_ms, bound_by]}."""
+    F = SUPERBLOCK_FRAMES // FB.FRAG
+    runs = []
+    for fb in (64, FB.FBD_TAIL):
+        x, g, tail, C = FB.seeded_dense_loop(rng, F, fb, DEVICE)
+        runs.append(("fbdelay_dense", dense_pair(x, g, tail, fb, C)))
+    runs.append(("fbdelay_legacy", legacy_pair(
+        *FB.seeded_legacy_loop(rng, 1, F, DEVICE), 1)))
+    out = {}
+    for name, (note, ms, pms, bad, err, nbytes, nops) in runs:
+        check(bad == 0, "%s kernel != plain on the seeded full superblock "
+              "%s: %d mismatches" % (name, note, bad))
+        bms, by = bound(nbytes, nops)
+        out.setdefault(name, []).append({
+            "shape": note, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": err})
     return out
 
 
@@ -558,6 +610,7 @@ def phase_tail():
     rng = np.random.default_rng(7)
     seeded = seeded_tail(rng)
     real = real_tail(rng)
+    full = full_fbdelay(rng)
     sources = {
         "fbdelay_dense": ("fbdelay_kernel.cu", "_apply_fbdelay_dense",
                           2101),
@@ -576,18 +629,25 @@ def phase_tail():
                                       for k, v in groups.items()}
         if o["kinds"]:
             extra["kinds"] = o["kinds"]
+        if name in full:
+            extra["seeded_full_superblocks"] = full[name]
         recs.append(record(
             name, "audiality2_tpu_torch/cuda/csrc/" + src,
             "audiality2_tpu/tpu/superblock.py:%d" % line, o["ms"],
             o["plain_ms"], o["bytes"], o["ops"], max(serr, o["max_err"]),
             variants_checked=nvar, real_items=o["items"],
             replaces_function=fn, **extra))
-        notes.append("%s: %d seeded variants%s, real %s"
+        notes.append("%s: %d seeded variants%s, real %s%s"
                      % (name, nvar, "" if groups is None else
                         " (groups per layout, min-max: %s)" % ", ".join(
                             "%s %d-%d" % (k, min(v), max(v))
                             for k, v in groups.items()),
-                        "; ".join(o["items"])))
+                        "; ".join(o["items"]),
+                        "".join("; seeded full superblock %s %.4f ms "
+                                "(plain %.1f ms, bound %.4f ms)"
+                                % (f["shape"], f["ms"], f["plain_ms"],
+                                   f["bound_ms"])
+                                for f in full.get(name, ()))))
     phase("tail", t0, "kernels equal to their plain versions (kernel and "
           "plain ms on the whole real items): %s" % " | ".join(notes))
     return recs
