@@ -18,7 +18,9 @@ state (fbdelay rings, filter and fm state) in place in static buffers,
 so that a ``torch.cuda.CUDAGraph`` per signature captures it: the host
 work of a superblock (``_prepare``) is numpy, one pinned upload and
 one graph launch.  The stage tail's serial recurrences run as CUDA
-kernels (``fbdelay.py``, ``filter.py``, ``fm.py``).
+kernels (``fbdelay.py``, ``filter.py``, ``fm.py``; under
+``stage_mode="float"`` the eligible filter12 / dcblock / limiter items
+run as scans, ``filter_float.py``).
 
 Integer semantics follow the reference exactly: int32 audio with
 wrap, int64 where the reference computes in int64, arithmetic right
@@ -37,6 +39,7 @@ from ..constants import A2_MAXFRAG
 from . import build
 from . import fbdelay as FB
 from . import filter as FL
+from . import filter_float as FF
 from . import fm as FM
 from . import osc_kernel as OK
 from .osc_kernel import _w
@@ -56,7 +59,8 @@ _M32 = 0xFFFFFFFF
 KERNEL_WRAPPERS = {"osc_rows": OK.osc_call,
                    "fbdelay_dense": FB.fbd_dense_call,
                    "fbdelay_legacy": FB.fbd_legacy_call,
-                   "filter": FL.filter_call, "fm": FM.fm_call}
+                   "filter": FL.filter_call, "fm": FM.fm_call,
+                   "filter_float": FF.filter_float_call}
 
 
 def _pitch_tables():
@@ -380,10 +384,10 @@ def stage_items(prog):
     return [t[:3] for t in items]
 
 
-FLOAT_TIER_MSG = ("stage_mode='float' is not ported yet: the float stage "
-                  "tier is ROADMAP.md section 1, item 'Float stage tier'")
 # the JAX mixer's float-tier eligibility threshold on a filter12 class's
-# lowest q (a signature element; the exact tier ignores it)
+# lowest q (a signature element): a weakly damped resonator keeps the
+# exact scan under stage_mode="float", as its truncation noise, which the
+# float tier models only by its mean, would drift past the -80 dB budget
 _FLOAT_TIER_MINQ = int(0.15 * (1 << 24))
 _FILT_INIT = {"lim": FL.LIM_PEAK0, "fm": 0, "f12": 0, "dcb": 0}
 # one process-wide lock around graph capture: the caching allocator's
@@ -580,7 +584,11 @@ class TorchMixer:
 
     The oscillator runs through ``osc_kernel.osc_call``, the stage tail
     through the fbdelay / filter / fm wrappers (the CUDA kernels for
-    CUDA tensors, their plain versions on the CPU).  Persistent state is
+    CUDA tensors, their plain versions on the CPU); with
+    ``stage_mode="float"`` a filter12 / dcblock / limiter item whose
+    class is eligible (the signature's flag: a filter12 class's lowest
+    q at or above ``_FLOAT_TIER_MINQ``) runs through
+    ``filter_float.filter_float_call`` instead.  Persistent state is
     keyed per stream as in the JAX mixer: fbdelay rings by unit id,
     which ``DeviceRenderer._tag_prog`` makes ``(ns, unit_id)`` on a
     shared mixer, filter / fm state by ``(ns, key)``.  A wrapper's
@@ -589,11 +597,8 @@ class TorchMixer:
 
     def __init__(self, core, device="cuda", readback="exact", quality=0,
                  transfer_lock=None, stage_mode="exact"):
-        if stage_mode == "float":
-            raise ValueError(FLOAT_TIER_MSG)
-        if stage_mode != "exact":
-            raise ValueError("stage_mode must be 'exact' (or 'float', not "
-                             "ported yet)")
+        if stage_mode not in ("exact", "float"):
+            raise ValueError("stage_mode must be 'exact' or 'float'")
         if readback not in ("exact", "i16"):
             raise ValueError("readback must be 'exact' or 'i16'")
         self.core = core
@@ -982,8 +987,9 @@ class TorchMixer:
         return (prog.F, prog.ninst, prog.master_inst,
                 prog.master_channels, rows, rpad, ns, nsm,
                 ramppad if prog.has_ramp else 0, self.readback,
-                self.quality + (32 if rpad and not getattr(
-                    prog, "rows_stereo", True) else 0),
+                self.quality + (16 if self.stage_mode == "float" else 0)
+                + (32 if rpad and not getattr(prog, "rows_stereo", True)
+                   else 0),
                 tuple(items), None)
 
     def device_bytes(self, prog):
@@ -1230,6 +1236,9 @@ class TorchMixer:
                 if kind == "fm":
                     FM.fm_call(slots, (key[3], key[4], key[5][0]), arr,
                                state, self._sine, v[("fgrp", j)])
+                elif quality & 16 and extra[2]:
+                    # the float tier, where the class is eligible
+                    FF.filter_float_call(slots, kind, key[3:8], arr, state)
                 else:
                     FL.filter_call(slots, kind, key[3:8], arr, state,
                                    v[("fgrp", j)])

@@ -14,7 +14,7 @@ fetch threads reads them back in order.  A profile pass first records
 the whole song once so that it runs one signature (one graph capture).
 
 The kernels are built once per process on a background thread (nvcc
-of the four kernel libraries); ``render`` and ``run`` wait for the
+of the kernel libraries); ``render`` and ``run`` wait for the
 build, and a failed build is raised by ``wait_device`` and by them.
 Content the device program cannot express (the builder raises
 ``Unsupported``), or a record error, makes the renderer restart on the
@@ -94,9 +94,10 @@ class DeviceRenderer:
             def go():
                 try:
                     from ..cuda import build, fbdelay, filter, fm
-                    from ..cuda import osc_kernel
+                    from ..cuda import filter_float, osc_kernel
                     build.build()
-                    for mod in (osc_kernel, fbdelay, filter, fm):
+                    for mod in (osc_kernel, fbdelay, filter, fm,
+                                filter_float):
                         mod._load()
                 except BaseException as e:
                     cls._warm_error = e
@@ -126,10 +127,8 @@ class DeviceRenderer:
     def __init__(self, interface, channels=None, device="cuda",
                  transfer_lock=None, readback="exact", mixer=None,
                  stage_mode="exact", pipeline_depth=3, chain_dispatch=1):
-        if stage_mode != "exact":
-            from ..cuda.mixer import FLOAT_TIER_MSG
-            raise ValueError(FLOAT_TIER_MSG if stage_mode == "float"
-                             else "stage_mode must be 'exact'")
+        if stage_mode not in ("exact", "float"):
+            raise ValueError("stage_mode must be 'exact' or 'float'")
         self.i = interface
         self.nr = NativeRenderer(interface, channels=channels)
         self.samplerate = self.nr.samplerate
@@ -149,7 +148,8 @@ class DeviceRenderer:
             self._pair_atlas = PairAtlas()
             self.mixer = TorchMixer(self, device=self.device,
                                     transfer_lock=transfer_lock,
-                                    readback=readback, quality=quality)
+                                    readback=readback, quality=quality,
+                                    stage_mode=stage_mode)
             self._shared = False
         else:
             # a shared mixer (serve.render_multiplexed): one signature

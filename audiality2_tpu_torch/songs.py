@@ -114,6 +114,63 @@ export SongMain(V=1)
 }
 """
 
+# The float stage tier's test song (the JAX package's tests/test_quality.py
+# _FLOAT_SRC): two saw leads through a damped filter12 and a dcblock, with
+# ten random cutoff / q steps each, into a stereo limiter.  About 2.4 s.
+FLOAT_SONG = """
+FilterLead(P V=1)
+{
+        struct { wtosc; filter12; dcblock db; panmix }
+        lp .5; bp .4; hp .2
+        w saw; p P; a (V * .3); set a
+        cutoff 3; q 1.5; set cutoff; set q
+        db.cutoff 2n
+        d 200
+        10 {
+                cutoff (rand 4 + 1); q (rand 2 + .3)
+                set cutoff; set q
+                d 180
+        }
+        a 0; d 400
+}
+
+export Song(P V=1)
+{
+        struct { inline 0 2; panmix PM 2 2; limiter L 2 > }
+        L.release 64; L.threshold 4
+        PM.vol .8
+        1:FilterLead (P + 2); d 300
+        1:FilterLead P; d 1800
+        end
+}
+"""
+
+# FLOAT_SONG with damped filters: script q is the filter12 resonance
+# (internal damping Q = 1/(256 q) in the units where 1.0 = 1 << 24), and
+# FLOAT_SONG's q of 0.3-2.3 is damping 0.002-0.013, below the float
+# tier's eligibility threshold (0.15), so its filter12 class keeps the
+# exact scan.  Here q 0.003-0.013 is damping 0.3-1.3: every class takes
+# the float tier.
+DAMPED_SONG = FLOAT_SONG.replace("q 1.5;", "q .008;").replace(
+    "q (rand 2 + .3)", "q (rand .01 + .003)")
+
+# A resonant filter12 voice (the JAX package's tests/test_quality.py
+# _RESO_SRC): script q .1 is internal damping Q ~ 0.039, far below the
+# float tier's eligibility threshold (0.15), so under stage_mode="float"
+# the class keeps the exact scan.  1.2 s, mono.
+RESO_SONG = """
+export Song(P V=1)
+{
+        struct { wtosc; filter12; panmix }
+        lp 1; bp 1; hp .5
+        q .1; set q; cutoff (P + 3); set cutoff
+        w saw; a .8; set a; p P
+        d 900; a 0; d 300
+}
+"""
+
 # the songs by name, with the program each starts
 SONGS = {"slice": (SLICE_SONG, "Song"), "effects": (EFFECTS_SONG, "Song"),
-         "late_fbdelay": (LATE_FBDELAY_SONG, "SongMain")}
+         "late_fbdelay": (LATE_FBDELAY_SONG, "SongMain"),
+         "float": (FLOAT_SONG, "Song"), "damped": (DAMPED_SONG, "Song"),
+         "reso": (RESO_SONG, "Song")}

@@ -1,7 +1,7 @@
 """The stage-tail kernels against an earlier form of them, on the card.
 
     python3 -m audiality2_tpu_torch.tail_ab --old-csrc DIR \\
-        [--kernels fbdelay | filter,fm] [--reps 10]
+        [--kernels fbdelay | filter,fm | filter_float] [--reps 10]
 
 DIR holds earlier kernel sources (with their ``stage_common.cuh``), for
 instance ``git archive <commit> audiality2_tpu_torch/cuda/csrc``
@@ -31,6 +31,14 @@ names the kernels to compare:
   on the effects song's first superblock's filter12 / dcblock /
   limiter / fm items, on the same seeded slots: slots and state must
   agree.  Also times the host's step-group computation of those items.
+- ``filter_float``: DIR's ``filter_float_kernel.cu`` with the C
+  interface of the current one (an output buffer of the same size)
+
+      a2_filter_float(slots, arr, state, scratch, obuf [no*S*K*64], S,
+                      K, kind, ni, no, add, sch0, sch1, dch0, dch1,
+                      stream)
+
+  on the same limiter / filter12 / dcblock items in the float tier.
 
 Builds the earlier sources with nvcc (sm_90a) beside the current
 kernels, then times each item's two forms in the order earlier,
@@ -56,6 +64,7 @@ from . import open_engine
 from .cuda import build
 from .cuda import fbdelay as FB
 from .cuda import filter as FL
+from .cuda import filter_float as FF
 from .cuda import fm as FM
 from .engine.device_render import DeviceRenderer, SUPERBLOCK_FRAMES
 from .songs import SONGS
@@ -67,6 +76,7 @@ OLD_ARGTYPES = {
                        "a2_fbd_legacy": [VP] * 6 + [CI] * 2 + [VP]},
     "filter_kernel": {"a2_filter": [VP] * 4 + [CI] * 10 + [VP]},
     "fm_kernel": {"a2_fm": [VP] * 5 + [CI] * 5 + [VP]},
+    "filter_float_kernel": {"a2_filter_float": [VP] * 5 + [CI] * 10 + [VP]},
 }
 
 
@@ -108,6 +118,21 @@ def old_filter(lib, slots, kind, sig, arr, state):
                         no, int(bool(add)), sch[0], sch[-1], dch[0],
                         dch[-1], _stream())
     build.launch_check(err, "earlier filter")
+
+
+def old_filter_float(lib, slots, kind, sig, arr, state):
+    ni, no, add, sch, dch = sig
+    S, K = arr.shape[:2]
+    scratch = torch.empty(FF.scratch_floats(kind, ni, S, K),
+                          dtype=torch.float32, device=slots.device)
+    obuf = torch.empty((no, S, K, FL.FRAG), dtype=torch.int32,
+                       device=slots.device)
+    err = lib.a2_filter_float(
+        slots.data_ptr(), arr.data_ptr(), state.data_ptr(),
+        scratch.data_ptr(), obuf.data_ptr(), S, K, FL.KINDS.index(kind),
+        ni, no, int(bool(add)), sch[0], sch[-1], dch[0], dch[-1],
+        _stream())
+    build.launch_check(err, "earlier filter_float")
 
 
 def old_fm(lib, slots, sig, arr, state, sine):
@@ -285,6 +310,61 @@ def fbdelay_ab(old, gen, rng, reps):
     return recs
 
 
+def item_ab(kind, S, K, older, new, slots0, reps, note, **extra):
+    """An item's earlier and current kernels, fn(slots, state), from
+    the same slots and a fresh state: results compared, then each timed
+    in the order earlier, current, current, earlier; returns the
+    record."""
+    dev = slots0.device
+    res = []
+    for fn in (older, new):
+        s, st = slots0.clone(), FL.init_state(kind, K, dev)
+        fn(s, st)
+        torch.cuda.synchronize()
+        res.append((s.cpu(), st.cpu()))
+    bad = sum(int((x != y).sum()) for x, y in zip(*res))
+    s, st = slots0.clone(), FL.init_state(kind, K, dev)
+    times = {"old": [], "new": []}
+    for which, fn in (("old", older), ("new", new), ("new", new),
+                      ("old", older)):
+        times[which].append(graph_ms(lambda: fn(s, st), reps))
+    rec = dict(kind=kind, S=int(S), K=int(K), mismatches=bad,
+               old_ms=times["old"], new_ms=times["new"],
+               speedup=float(np.mean(times["old"])
+                             / np.mean(times["new"])), **extra)
+    print("%-4s S%d K%d %s: earlier %s ms, current %s ms (%.1fx), %d "
+          "mismatches" % (kind, S, K, note,
+                          " / ".join("%.4f" % t for t in times["old"]),
+                          " / ".join("%.4f" % t for t in times["new"]),
+                          rec["speedup"], bad), flush=True)
+    return rec
+
+
+def float_ab(old, gen, reps):
+    """Earlier and current float-tier kernels on the effects song's
+    limiter / filter12 / dcblock items; returns the item records."""
+    prog = first_program("effects", 2)
+    dev = torch.device("cuda")
+    slots0 = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FL.FRAG))
+    recs = []
+    for fl in prog.filters:
+        kind, sig = fl["kind"], fl["key"][3:8]
+        if kind not in FL.KINDS:
+            continue
+        arr = torch.as_tensor(fl["arr"], device=dev)
+        S, K = arr.shape[:2]
+
+        def new(s, st, kind=kind, sig=sig, arr=arr):
+            FF.filter_float_call(s, kind, sig, arr, st)
+
+        def older(s, st, kind=kind, sig=sig, arr=arr):
+            old_filter_float(old["filter_float_kernel"], s, kind, sig, arr,
+                             st)
+        recs.append(item_ab(kind, S, K, older, new, slots0, reps,
+                            "float tier"))
+    return recs
+
+
 def filter_fm_ab(old, gen, reps, kernels):
     """Earlier and current filter / fm kernels on the effects song's
     items; returns (item records, host step-group ms per run)."""
@@ -329,30 +409,9 @@ def filter_fm_ab(old, gen, reps, kernels):
 
             def older(s, st, kind=kind, sig=sig, arr=arr):
                 old_filter(old["filter_kernel"], s, kind, sig, arr, st)
-        res = []
-        for fn in (older, new):
-            s, st = slots0.clone(), FL.init_state(kind, K, dev)
-            fn(s, st)
-            torch.cuda.synchronize()
-            res.append((s.cpu(), st.cpu()))
-        bad = sum(int((x != y).sum()) for x, y in zip(*res))
-        s, st = slots0.clone(), FL.init_state(kind, K, dev)
-        times = {"old": [], "new": []}
-        for which, fn in (("old", older), ("new", new), ("new", new),
-                          ("old", older)):
-            times[which].append(graph_ms(lambda: fn(s, st), reps))
-        rec = {"kind": kind, "S": int(S), "K": int(K),
-               "groups": len(bounds) - 1, "mismatches": bad,
-               "old_ms": times["old"], "new_ms": times["new"],
-               "speedup": float(np.mean(times["old"])
-                                / np.mean(times["new"]))}
-        recs.append(rec)
-        print("%-4s S%d K%d %d groups: earlier %s ms, current %s ms "
-              "(%.1fx), %d mismatches"
-              % (kind, S, K, rec["groups"],
-                 " / ".join("%.4f" % t for t in times["old"]),
-                 " / ".join("%.4f" % t for t in times["new"]),
-                 rec["speedup"], bad), flush=True)
+        recs.append(item_ab(kind, S, K, older, new, slots0, reps,
+                            "%d groups" % (len(bounds) - 1),
+                            groups=len(bounds) - 1))
     print("host step groups of the superblock's %d items: median %.3f ms "
           "(min %.3f, max %.3f over 20 runs)"
           % (len(items), float(np.median(t_groups)), min(t_groups),
@@ -364,11 +423,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", required=True)
     ap.add_argument("--kernels", default="fbdelay",
-                    help="comma-separated: fbdelay, filter, fm")
+                    help="comma-separated: fbdelay, filter, fm, "
+                         "filter_float")
     ap.add_argument("--reps", type=int, default=10)
     a = ap.parse_args(argv)
     kernels = set(a.kernels.split(","))
-    if not kernels <= {"fbdelay", "filter", "fm"}:
+    if not kernels <= {"fbdelay", "filter", "fm", "filter_float"}:
         ap.error("unknown kernels: %s" % a.kernels)
     if not torch.cuda.is_available():
         print("tail_ab: no CUDA device", file=sys.stderr)
@@ -390,9 +450,11 @@ def main(argv=None):
     if kernels & {"filter", "fm"}:
         out["items"], out["host_groups_ms"] = filter_fm_ab(old, gen, a.reps,
                                                            kernels)
+    if "filter_float" in kernels:
+        out["float_items"] = float_ab(old, gen, a.reps)
     print(json.dumps(out))
-    bad = [r for k in ("fbdelay", "items") for r in out.get(k, ())
-           if r["mismatches"]]
+    bad = [r for k in ("fbdelay", "items", "float_items")
+           for r in out.get(k, ()) if r["mismatches"]]
     return 1 if bad else 0
 
 

@@ -12,8 +12,9 @@ of the host units' math):
   * ``rows_numpy`` on the host, below ``RowBatch.JAX_MIN_ROWS`` rows or
     when the engine was opened with ``use_jax=False``;
   * ``rows_torch``, plain PyTorch tensor ops on ``RowBatch.device``
-    (the card unless a caller sets another device), the counterpart
-    of the JAX package's jitted ``rows_jax``.
+    (the card), or on the device that ``row_device`` sets for the
+    calling thread, the counterpart of the JAX package's jitted
+    ``rows_jax``.
 
 Row layout (int64 unless noted):
   base   atlas offset of d[0] for the chosen mip level
@@ -27,6 +28,9 @@ Row layout (int64 unless noted):
 
 Output: int64[N, 2, 64] per-row audio (ch1 all-zero for mono rows).
 """
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -157,6 +161,22 @@ def rows_torch(atlas_obj, *args, device="cuda"):
     return _rows_t(c["data"], *t).cpu().numpy()
 
 
+# the calling thread's row device (row_device), over RowBatch.device
+_thread = threading.local()
+
+
+@contextlib.contextmanager
+def row_device(device):
+    """Inside the block, the calling thread's row batches evaluate on
+    `device` (other threads keep ``RowBatch.device``)."""
+    prev = getattr(_thread, "device", None)
+    _thread.device = device
+    try:
+        yield
+    finally:
+        _thread.device = prev
+
+
 def _next_pow2(n):
     p = 64
     while p < n:
@@ -225,7 +245,8 @@ class RowBatch:
         """Returns int64[n, 2, 64] row audio.  atlas_obj is a
         WaveAtlas (numpy data + version for device caching).  use_jax
         (the engine's config name) selects the device path, rows_torch
-        on ``device``, for batches of at least JAX_MIN_ROWS rows."""
+        on ``device`` (or the thread's ``row_device``), for batches of
+        at least JAX_MIN_ROWS rows."""
         if not self.n:
             return np.zeros((0, 2, FRAG), dtype=np.int64)
         if use_jax and self.n < self.JAX_MIN_ROWS:
@@ -246,7 +267,9 @@ class RowBatch:
                 arr(self.vol0), arr(self.dvol), arr(self.pan0),
                 arr(self.dpan))
         if use_jax:
-            out = rows_torch(atlas_obj, *args, device=self.device)
+            out = rows_torch(atlas_obj, *args,
+                             device=getattr(_thread, "device", None)
+                             or self.device)
         else:
             out = rows_numpy(atlas_obj.data, *args)
         return out[:self.n]

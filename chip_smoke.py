@@ -9,7 +9,7 @@ seconds:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, whether nvcc is found;
-2. build: the native runtime (native/build.sh) and the four kernel
+2. build: the native runtime (native/build.sh) and the five kernel
    libraries (one nvcc per source for sm_90a), from the sources in the
    checkout, all in parallel;
 3. kernel: the CUDA oscillator against its plain PyTorch version on
@@ -58,24 +58,48 @@ seconds:
    effects with different arguments, batch 2) and ``serve.render_many``
    of two (slice, effects), each stream bit for bit against its solo
    native render, every kernel of the path launched; aggregate x
-   realtime.
+   realtime;
+11. float: the float stage tier's kernels (``filter_float_call``)
+   against their plain version on the card, bit for bit, on seeded
+   items (every kind x inputs x outputs x add in two slot layouts, both
+   outputs on one slot channel, a full-superblock limiter stereo and
+   stereo-in / mono-out, filter12 outputs driven past the int32 range)
+   and on the effects song's real limiter, filter12 and dcblock items,
+   each timed beside the exact tier's kernel on the same item and its
+   bound; then ``stage_mode="float"`` renders, pipelined: the float
+   song, the damped song (filter12 in the float tier too) and the
+   effects song each bit-equal to the same render through the plain
+   versions on the CPU (``DeviceRenderer(device="cpu",
+   stage_mode="float")``) and within their dB limits of native,
+   ``songs.RESO_SONG`` bit-equal to native (its resonant filter12 stays
+   exact); then the effects song exact against float, 10 s, in
+   alternating pairs, each again equal to its reference;
+12. cli: ``audiality2_tpu_torch.cli.main(["-c", "2", "-st", "10", "-o",
+   wav, path])`` (the card by default) and the same with ``--gpu`` on
+   the effects song written to a temporary .a2s file: the WAV's PCM
+   equal to clip(native >> 8), every kernel of the path launched, the
+   CLI's x realtime.
 
 Every kernel launch counter is set to 0 just before each render and
 read just after; a graph launch adds the launches captured in it.
 Then one JSON line with the kernels' numbers and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failure raises, and the exit
 code is not 0.  Needs one card; exits non-zero without one.
-``--phases a,b`` runs only the named phases of 5-10 after device,
+``--phases a,b`` runs only the named phases of 3-12 after device,
 build (for quick checks; the full run takes no argument).
 """
 
 import argparse
+import contextlib
+import io
 import itertools
 import json
 import os
 import shutil
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,12 +109,13 @@ import audiality2_tpu_torch as a2
 from audiality2_tpu_torch.cuda import build
 from audiality2_tpu_torch.cuda import fbdelay as FB
 from audiality2_tpu_torch.cuda import filter as FL
+from audiality2_tpu_torch.cuda import filter_float as FF
 from audiality2_tpu_torch.cuda import fm as FM
 from audiality2_tpu_torch.cuda import osc_kernel as OK
-from audiality2_tpu_torch.cuda.mixer import KERNEL_WRAPPERS
+from audiality2_tpu_torch.cuda.mixer import KERNEL_WRAPPERS, _FLOAT_TIER_MINQ
 from audiality2_tpu_torch.engine.device_render import (DeviceRenderer,
                                                        SUPERBLOCK_FRAMES)
-from audiality2_tpu_torch import serve
+from audiality2_tpu_torch import cli, serve
 from audiality2_tpu_torch.native import NativeRenderer
 from audiality2_tpu_torch.songs import SONGS
 from audiality2_tpu_torch.tail_ab import graph_ms
@@ -101,6 +126,8 @@ SR = 44100
 # ALU at 64 lanes/SM x 132 SMs x 1.98 GHz boost (Hopper white paper)
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 64 * 132 * 1.98e9
+# float32 outside the tensor cores, 67 TFLOP/s (data sheet)
+FP32_OPS_S = 67e12
 DEVICE = "cuda"
 # rounds of the oscillator's timing, for its spread within one run
 OSC_ROUNDS = 5
@@ -134,17 +161,18 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, nops):
-    """(bound ms, "bytes" or "operations") of work at the card's peaks."""
+def bound(nbytes, nops, ops_s=INT32_OPS_S):
+    """(bound ms, "bytes" or "operations") of work at the card's peaks
+    (ops_s: the peak rate of the work's operations)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = nops / INT32_OPS_S * 1e3
+    t_ops = nops / ops_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
 
 def record(name, source, replaces, ms, plain_ms, nbytes, nops, max_err,
-           **extra):
-    bms, by = bound(nbytes, nops)
+           ops_s=INT32_OPS_S, **extra):
+    bms, by = bound(nbytes, nops, ops_s)
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "max_abs_err": max_err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -192,12 +220,15 @@ def zero_launches():
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     FL.filter_call.kind_launches = dict.fromkeys(FL.KINDS, 0)
+    FF.filter_float_call.kind_launches = dict.fromkeys(FL.KINDS, 0)
 
 
 def read_launches():
     launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
-    launches.update(("filter_" + k, n)
-                    for k, n in FL.filter_call.kind_launches.items())
+    for name, fn in (("filter", FL.filter_call),
+                     ("filter_float", FF.filter_float_call)):
+        launches.update((name + "_" + k, n)
+                        for k, n in fn.kind_launches.items())
     return launches
 
 
@@ -238,10 +269,8 @@ def phase_build():
     finally:
         nout, _ = native.communicate(timeout=build.BUILD_TIMEOUT_S)
     check(native.returncode == 0, "native build failed:\n" + nout)
-    OK._load()
-    FB._load()
-    FL._load()
-    FM._load()
+    for mod in (OK, FB, FL, FM, FF):
+        mod._load()
     ptxas = ["%s: %s" % (n, " | ".join(
         ln.strip() for ln in build.build_log.get(n, "").splitlines()
         if "registers" in ln or "spill" in ln)) for n in build.SOURCES]
@@ -657,13 +686,22 @@ def phase_tail():
 # renders against native
 # ---------------------------------------------------------------
 
+def rms_db(mine, ref):
+    """The RMS of mine - ref against the RMS of ref, in dB."""
+    d = mine.astype(np.float64) - ref.astype(np.float64)
+    r = np.sqrt((ref.astype(np.float64) ** 2).mean())
+    return float(20 * np.log10(np.sqrt((d ** 2).mean()) / r + 1e-30))
+
+
 def render_check(song, channels, seconds, label, need,
-                 sb=SUPERBLOCK_FRAMES, **kw):
+                 sb=SUPERBLOCK_FRAMES, max_db=None, same_as=None, **kw):
     """Renders `song` through the port in superblocks of `sb` frames and
-    natively over the same superblocks; checks bit equality, no
-    bridging, and a launch of each kernel in `need`.  kw go to the
-    DeviceRenderer.  Returns ({kernel: launches}, x realtime, timings,
-    wall s, graph launches)."""
+    natively over the same superblocks; checks bit equality (or, with
+    max_db, an RMS difference of at most max_db dB, and bit equality with
+    the render `same_as` when given), no bridging, and a launch of each
+    kernel in `need`.  kw go to the DeviceRenderer.
+    Returns ({kernel: launches}, x realtime, timings, wall s, graph
+    launches, dB against native)."""
     frames = int(seconds * SR)
     want = native_render(song, channels, frames, sb=sb)
     r = open_song(song, channels, DeviceRenderer, device=DEVICE, **kw)
@@ -686,9 +724,18 @@ def render_check(song, channels, seconds, label, need,
     for k in need:
         check(launches[k] > 0, "%s: the %s kernel never launched"
               % (label, k))
-    bad = int((out != want).sum())
-    check(bad == 0, "%s: %d samples differ from native" % (label, bad))
-    return launches, seconds / dt, timings, dt, replays
+    db = rms_db(out, want)
+    if max_db is None:
+        bad = int((out != want).sum())
+        check(bad == 0, "%s: %d samples differ from native" % (label, bad))
+    else:
+        check(db <= max_db, "%s: %.2f dB from native (limit %.1f dB)"
+              % (label, db, max_db))
+    if same_as is not None:
+        bad = int((out != same_as).sum())
+        check(bad == 0, "%s: %d samples differ from the same render "
+              "through the plain versions on the CPU" % (label, bad))
+    return launches, seconds / dt, timings, dt, replays, db
 
 
 def split(tm):
@@ -697,9 +744,9 @@ def split(tm):
 
 def phase_slice():
     t0 = time.perf_counter()
-    launches, xrt, tm, dt, _ = render_check("slice", 2, 10.0, "slice "
+    launches, xrt, tm, dt, _, _ = render_check("slice", 2, 10.0, "slice "
                                             "stereo 10 s", ["osc_rows"])
-    mono, mono_xrt, _, _, _ = render_check("slice", 1, 2.0,
+    mono, mono_xrt, _, _, _, _ = render_check("slice", 1, 2.0,
                                            "slice mono 2 s", ["osc_rows"])
     phase("slice", t0, "stereo 10 s == native, %.1f x realtime (%.3f s: "
           "%s), %d oscillator launches; mono 2 s == native, %.1f x "
@@ -711,7 +758,7 @@ def phase_slice():
 
 def phase_effects():
     t0 = time.perf_counter()
-    launches, xrt, tm, dt, _ = render_check(
+    launches, xrt, tm, dt, _, _ = render_check(
         "effects", 2, 10.0, "effects stereo 10 s",
         ["osc_rows", "fbdelay_dense", "filter", "fm"])
     phase("effects", t0, "stereo 10 s == native, %.1f x realtime (%.3f s: "
@@ -721,7 +768,7 @@ def phase_effects():
 
 def phase_legacy():
     t0 = time.perf_counter()
-    launches, xrt, tm, dt, _ = render_check(
+    launches, xrt, tm, dt, _, _ = render_check(
         "late_fbdelay", 1, 1.4, "late fbdelay mono 1.4 s",
         ["fbdelay_legacy"])
     phase("legacy", t0, "mono 1.4 s == native, %.1f x realtime (%.3f s: "
@@ -800,11 +847,11 @@ def phase_capture():
     return "captured; replay equal to the eager launch"
 
 
-def timed_render(song, channels, frames, pipelined):
+def timed_render(song, channels, frames, pipelined, stage_mode="exact"):
     """One fresh render, device launches timed: (wall s, timings, device
     busy s, graph replays, captures)."""
     r = open_song(song, channels, DeviceRenderer, device=DEVICE,
-                  chain_dispatch=4)
+                  chain_dispatch=4, stage_mode=stage_mode)
     r.wait_device()
     r.mixer.time_device = True
     torch.cuda.synchronize()
@@ -878,7 +925,7 @@ def phase_pipeline():
         label = "%s %s %.1f s chain 4%s" % (
             song, "stereo" if ch == 2 else "mono", secs,
             "" if sb == SUPERBLOCK_FRAMES else ", %d-frame superblocks" % sb)
-        launches, xrt, tm, dt, replays = render_check(
+        launches, xrt, tm, dt, replays, _ = render_check(
             song, ch, secs, label, PATH_KERNELS[song], sb=sb,
             chain_dispatch=4)
         if sb != SUPERBLOCK_FRAMES:
@@ -973,7 +1020,269 @@ def phase_serve():
     return results
 
 
-PHASES = ("capture", "slice", "effects", "legacy", "pipeline", "serve")
+# ---------------------------------------------------------------
+# the float stage tier, the CLI
+# ---------------------------------------------------------------
+
+# dB limits of float-tier renders against native where the JAX package's
+# own float tier misses its -80 dB budget (its renders on the CPU, in the
+# same superblocks): the effects song, 10 s, -66.66 dB (seconds 6-9 near
+# -44 dB); the damped song, 1.8 s, -74.4 dB.  The port tracks JAX's
+# float tier to within -90 dB on both.  What holds the card's float
+# renders is bit equality with the same render through the plain
+# versions on the CPU (plain_float_render); the dB are reported.
+FLOAT_DB = {"effects": -65.0, "damped": -70.0}
+
+
+def plain_float_render(song, channels, frames):
+    """`song` through DeviceRenderer(device="cpu", stage_mode="float"):
+    every kernel's plain version, in the superblocks of the card's
+    renders."""
+    r = open_song(song, channels, DeviceRenderer, device="cpu",
+                  stage_mode="float")
+    out = r.render(frames, bufsize=SUPERBLOCK_FRAMES)
+    r.close()
+    return out
+
+
+def float_pair(kind, sig, slots, arr, state):
+    """filter_float_call against filter_float_torch on the card, each on
+    its own copy of the inputs: (the kernel's slots, mismatches, max abs
+    difference)."""
+    s1, st1 = slots.clone(), state.clone()
+    s2, st2 = slots.clone(), state.clone()
+    FF.filter_float_call(s1, kind, sig, arr, st1)
+    FF.filter_float_torch(s2, kind, sig, arr, st2)
+    bad, err = mismatches([(s1, s2), (st1, st2)])
+    return s1, bad, err
+
+
+def seeded_float(rng):
+    """Every seeded float-tier variant, kernel against plain version on
+    the card; returns (variants, max abs err, notes)."""
+    cases = [(kind, ni, no, add, layout, 40, 5, None, False)
+             for kind, (ni, no), add, layout in itertools.product(
+                 FL.KINDS, ((1, 1), (2, 2), (1, 2), (2, 1)), (True, False),
+                 ("shared", "free"))]
+    # both outputs on one slot channel: the second channel's old values
+    # are read after the first channel's adds (a delta pass of its own)
+    cases += [(kind, 2, 2, False, "shared", 40, 5, (0, 0), False)
+              for kind in FL.KINDS]
+    # a full superblock's limiter (2,797 slices: 88 tiles of 2,048
+    # samples), stereo and stereo-in / mono-out
+    cases += [("lim", 2, 2, False, "split", 2797, 1, None, False),
+              ("lim", 2, 1, True, "split", 2797, 1, None, False)]
+    # filter12 outputs past the int32 range: the emit saturates
+    cases += [("f12", ni, ni, False, "free", 40, 5, None, True)
+              for ni in (1, 2)]
+    err = 0
+    saturated = 0
+    for kind, ni, no, add, layout, S, K, dch, hot in cases:
+        slots, arr, state = FF.seeded_item(rng, kind, ni, no, S, K,
+                                           2 * K + 8, layout, hot)
+        sig = (ni, no, add, (0, 1) if ni == 2 else (1,),
+               dch or ((1, 0) if no == 2 else (0,)))
+        got, bad, e = float_pair(kind, sig, *on(DEVICE, slots, arr, state))
+        check(bad == 0, "filter_float %s %d->%d add %s %s S %d K %d dch %s "
+              "hot %s: %d mismatches" % (kind, ni, no, add, layout, S, K,
+                                         sig[4], hot, bad))
+        if hot:
+            n = int(((got == (1 << 31) - 1) | (got == -(1 << 31))).sum())
+            check(n > 0, "the hot filter12 item saturated nothing")
+            saturated += n
+        err = max(err, e)
+    return len(cases), err, "%d saturated outputs" % saturated
+
+
+def real_float(rng):
+    """The effects song's first superblock's limiter, filter12 and
+    dcblock items through the float tier: kernel against plain version,
+    kernel ms beside the exact tier's kernel on the same item and the
+    bound.  Returns {kind: dict}."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(rng.integers(1 << 30)))
+    prog, _, _ = first_program("effects", 2)
+    slots0 = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FB.FRAG))
+    out = {}
+    for fl in prog.filters:
+        kind, key = fl["kind"], fl["key"]
+        if kind == "fm":
+            continue
+        S, K = fl["arr"].shape[:2]
+        sig = key[3:8]
+        arr = on(DEVICE, fl["arr"])[0]
+
+        def make(kind=kind, K=K, arr=arr):
+            return (slots0.clone(), arr, FL.init_state(kind, K, DEVICE))
+
+        ms, pms, bad, err = time_pair(
+            lambda s, a, st, kind=kind, sig=sig:
+                (s, FF.filter_float_call(s, kind, sig, a, st)),
+            lambda s, a, st, kind=kind, sig=sig:
+                (s, FF.filter_float_torch(s, kind, sig, a, st)), make)
+        check(bad == 0, "filter_float kernel != plain on the real %s item: "
+              "%d mismatches" % (kind, bad))
+        b = device_groups(FL, fl, sig)
+        s, a, st = make()
+        exact_ms = graph_ms(lambda: FL.filter_call(s, kind, sig, a, st, b))
+        nbytes, nops = FF.work(fl["arr"], kind, *sig[:3])
+        bms, by = bound(nbytes, nops, FP32_OPS_S)
+        out[kind] = {"shape": "S%d K%d" % (S, K), "ms": ms,
+                     "exact_ms": exact_ms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                     "ops": nops, "max_abs_err": err,
+                     "eligible": fl.get("minq", 1 << 30)
+                     >= _FLOAT_TIER_MINQ}
+    check(set(out) == set(FL.KINDS), "the effects song's first superblock "
+          "lacks a filter kind: %s" % sorted(out))
+    return out
+
+
+def phase_float():
+    """The float tier: kernels against the plain version, the real items
+    timed beside the exact kernel, float renders against the plain
+    versions on the CPU and native, and the effects song exact against
+    float in alternating pairs.  Returns
+    (the kernel's JSON record, {render: launches}, timing)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    nvar, serr, snote = seeded_float(rng)
+    real = real_float(rng)
+    notes = ["%d seeded variants equal to the plain version (%s)"
+             % (nvar, snote)]
+    notes.append("real items: " + "; ".join(
+        "%s %s %.4f ms (exact kernel %.4f ms, plain %.1f ms, bound %.4f "
+        "ms)" % (k, v["shape"], v["ms"], v["exact_ms"], v["plain_ms"],
+                 v["bound_ms"]) for k, v in real.items()))
+    paths = {}
+    plain = {}
+    # (song, channels, seconds, dB limit against native or None for bit
+    # equality, float kinds that must launch, kinds that must not)
+    for song, ch, secs, max_db, need, never in (
+            ("float", 2, 2.0, -80.0, ("lim", "dcb"), ("f12",)),
+            ("damped", 2, 2.0, FLOAT_DB["damped"], FL.KINDS, ()),
+            ("effects", 2, 10.0, FLOAT_DB["effects"], ("lim", "dcb"),
+             ("f12",)),
+            ("reso", 1, 1.2, None, (), FL.KINDS)):
+        label = "%s %s %.1f s float" % (song, "stereo" if ch == 2
+                                        else "mono", secs)
+        if max_db is not None:
+            t1 = time.perf_counter()
+            plain[song] = plain_float_render(song, ch, int(secs * SR))
+            plain_s = time.perf_counter() - t1
+        launches, xrt, tm, dt, replays, db = render_check(
+            song, ch, secs, label, (), max_db=max_db, stage_mode="float",
+            chain_dispatch=4, same_as=plain.get(song))
+        for k in need:
+            check(launches["filter_float_" + k] > 0, "%s: the float %s "
+                  "kernels never launched" % (label, k))
+        for k in never:
+            check(launches["filter_float_" + k] == 0, "%s: %s ran in the "
+                  "float tier under the eligibility threshold" % (label, k))
+        if never:
+            check(launches["filter"] > 0, "%s: no exact filter kernel "
+                  "launched" % label)
+        paths[label] = launches
+        notes.append("%s %s, %.2f dB from native%s, %.1f x realtime, "
+                     "launches %s" % (
+                         label, "== native" if max_db is None else
+                         "== plain versions on the CPU (%.1f s)" % plain_s,
+                         db, "" if max_db is None else
+                         " (limit %.1f)" % max_db, xrt, json.dumps(
+                             {k: v for k, v in launches.items() if v})))
+    frames = int(10.0 * SR)
+    want = native_render("effects", 2, frames)
+    runs = {"exact": [], "float": []}
+    for order in (("exact", "float"), ("float", "exact"),
+                  ("exact", "float")):
+        for mode in order:
+            wall, tm, busy, replays, caps, cap_s, out = timed_render(
+                "effects", 2, frames, True, stage_mode=mode)
+            db = rms_db(out, want)
+            ref = plain["effects"] if mode == "float" else want
+            check(int((out != ref).sum()) == 0, "effects %s timing render "
+                  "differs from %s (%.2f dB from native)"
+                  % (mode, "the plain versions" if mode == "float"
+                     else "native", db))
+            runs[mode].append({"wall_s": wall, "x_realtime": 10.0 / wall,
+                               "device_busy_s": busy,
+                               "idle_share": 1 - busy / wall,
+                               "db_vs_native": db, "phases_s": tm})
+    for mode, rs in runs.items():
+        notes.append("effects pipelined %s: x realtime %s, idle %s"
+                     % (mode, " ".join("%.1f" % r["x_realtime"] for r in rs),
+                        " ".join("%.3f" % r["idle_share"] for r in rs)))
+    phase("float", t0, " | ".join(notes))
+    rec = record(
+        "filter_float", "audiality2_tpu_torch/cuda/csrc/"
+        "filter_float_kernel.cu", "audiality2_tpu/tpu/superblock.py:2374",
+        sum(v["ms"] for v in real.values()),
+        sum(v["plain_ms"] for v in real.values()),
+        sum(v["bytes"] for v in real.values()),
+        sum(v["ops"] for v in real.values()),
+        max([serr] + [v["max_abs_err"] for v in real.values()]),
+        ops_s=FP32_OPS_S, variants_checked=nvar,
+        replaces_function="_apply_filter_float",
+        kinds={k: {x: v[x] for x in ("shape", "ms", "exact_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "eligible")}
+               for k, v in real.items()},
+        launches_by_path={p: l["filter_float"] for p, l in paths.items()})
+    return rec, paths, runs
+
+
+def phase_cli():
+    """The CLI's render of the effects song to a WAV on the card, by
+    default and with --gpu, against clip(native >> 8)."""
+    t0 = time.perf_counter()
+    frames = int(10.0 * SR)
+    want = native_render("effects", 2, frames)
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "effects.a2s")
+        wav = os.path.join(tmp, "effects.wav")
+        with open(path, "w") as f:
+            f.write(SONGS["effects"][0])
+        exp = np.clip(want.T.reshape(-1) >> 8, -32768, 32767) \
+            .astype("<i2")
+        res = {}
+        for switches in ([], ["--gpu"]):
+            label = " ".join(["a2play-gpu"] + switches)
+            out = io.StringIO()
+            zero_launches()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(switches + ["-c", "2", "-st", "10", "-o", wav,
+                                          path])
+            launches = read_launches()
+            check(rc == 0, "%s: exit code %d:\n%s"
+                  % (label, rc, out.getvalue()))
+            with open(wav, "rb") as f:
+                pcm = np.frombuffer(f.read()[44:], "<i2")
+            check(pcm.shape == exp.shape, "%s: %d PCM samples, want %d"
+                  % (label, pcm.size, exp.size))
+            bad = int((pcm != exp).sum())
+            check(bad == 0, "%s: %d PCM samples differ from clip(native "
+                  ">> 8)" % (label, bad))
+            for k in PATH_KERNELS["effects"]:
+                check(launches[k] > 0, "%s: the %s kernel never launched"
+                      % (label, k))
+            m = re.search(r"\(([0-9.]+)x realtime\)", out.getvalue())
+            check(m is not None, "%s: no x realtime in its output:\n%s"
+                  % (label, out.getvalue()))
+            res[label] = {"x_realtime": float(m.group(1)),
+                          "launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("cli", t0, " | ".join(
+        "%s -c 2 -st 10 -o: WAV == clip(native >> 8) (%d samples), %.1f x "
+        "realtime; launches %s" % (label, exp.size, r["x_realtime"],
+                                   json.dumps({k: v for k, v in
+                                               r["launches"].items() if v}))
+        for label, r in res.items()))
+    return res
+
+
+PHASES = ("capture", "slice", "effects", "legacy", "pipeline", "serve",
+          "float", "cli")
 
 
 def main(argv=None):
@@ -1011,6 +1320,12 @@ def main(argv=None):
         extra["pipeline_launches"], extra["timing"] = phase_pipeline()
     if "serve" in want:
         extra["serve"] = phase_serve()
+    if "float" in want:
+        rec, fpaths, extra["float_timing"] = phase_float()
+        kernels.append(rec)
+        paths["filter_float"] = fpaths["effects stereo 10.0 s float"]
+    if "cli" in want:
+        extra["cli"] = phase_cli()
     # launches of the render phases that ran (all of them without
     # --phases); a kind without a count of its own (fm) takes its
     # kernel's
@@ -1019,8 +1334,9 @@ def main(argv=None):
         if own is not None:
             rec["launches"] = own[rec["name"]]
             for kind, k in rec.get("kinds", {}).items():
-                k["launches"] = own.get("filter_" + kind, own[rec["name"]])
-        if "pipeline_launches" in extra:
+                k["launches"] = own.get(rec["name"] + "_" + kind,
+                                        own[rec["name"]])
+        if "pipeline_launches" in extra and "launches_by_path" not in rec:
             rec["launches_by_path"] = {
                 p: l[rec["name"]]
                 for p, l in extra["pipeline_launches"].items()}

@@ -70,10 +70,11 @@ def test_port_imports_and_renders_without_jax():
 import numpy as np
 import audiality2_tpu_torch as a2
 from audiality2_tpu_torch.cuda import build, fbdelay, filter, fm, mixer
+from audiality2_tpu_torch.cuda import filter_float
 from audiality2_tpu_torch.engine.device_render import DeviceRenderer
 from audiality2_tpu_torch.native import NativeRenderer
 from audiality2_tpu_torch.songs import EFFECTS_SONG, SLICE_SONG
-from audiality2_tpu_torch import profile_render, render_ab
+from audiality2_tpu_torch import cli, profile_render, render_ab
 def open_(cls, src, **kw):
     i = a2.open_engine(44100, 4096, 2, batched=False)
     s = i.get(i.load_string(src, "s"), "Song")
