@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_TIMEOUT_S = 300
 # the sources, by the name of their module in this package
 SOURCES = ("osc_kernel", "fbdelay_kernel", "filter_kernel", "fm_kernel",
-           "filter_float_kernel")
+           "filter_float_kernel", "unpack_kernel", "rows_kernel")
 
 build_log = {}               # source name -> nvcc output of its build
 _handles = {}                # source name -> loaded ctypes library

@@ -5,6 +5,7 @@ Counterpart of the JAX package's ``DeviceMixer``
 (``audiality2_tpu/tpu/superblock.py:3033``).  One superblock body
 (``TorchMixer._body``, the JAX mixer's ``_build_inner``):
 
+  packed runs --(unpack_call, where the format is on)--> runmat
   runs --(_row_params: run -> row expansion, ramp replay)--> rows
   rows --(osc_call per pass class; noise/dc rows in torch)--> audio
   audio, stash --(int32 segment sums)--> slots[ninst*F+1, 2, 64]
@@ -29,6 +30,7 @@ shifts, C truncating division (``torch.div(..., rounding_mode=
 """
 
 import contextlib
+import os
 import threading
 import time
 
@@ -42,9 +44,12 @@ from . import filter as FL
 from . import filter_float as FF
 from . import fm as FM
 from . import osc_kernel as OK
+from . import packed as PK
 from .osc_kernel import _w
+from .packed import _RMQ_IDXCOLS, _RMQ_WORDS, _RQR_IDXCOLS, _RQR_WORDS
 from .superblock import (
     ALL_CLASSES, BASE_N, RR_N, _FILT_DEAD, _FILT_W, _pow2, _quant,
+    Unsupported,
     RC_START, RC_LEN, RC_DPH, RC_SIZE, RC_POSOFF, RC_AMP0,
     RC_DAMP, RC_VOL0, RC_DVOL, RC_PAN0, RC_DPAN, RC_SLOT, RC_MODE, RC_OFF,
     RC_TOTAL, RC_PHHI, RC_PHLO, RC_RIDX, RR_MIP, RR_AT, RR_ATMR, RR_VT,
@@ -60,7 +65,8 @@ KERNEL_WRAPPERS = {"osc_rows": OK.osc_call,
                    "fbdelay_dense": FB.fbd_dense_call,
                    "fbdelay_legacy": FB.fbd_legacy_call,
                    "filter": FL.filter_call, "fm": FM.fm_call,
-                   "filter_float": FF.filter_float_call}
+                   "filter_float": FF.filter_float_call,
+                   "unpack": PK.unpack_call}
 
 
 def _pitch_tables():
@@ -434,8 +440,11 @@ def blob_layout(sig):
     """Static layout of one superblock's upload: name -> (offset, shape)
     over one flat int32 array, and its size, from the signature alone
     (so the host fill and the body's views always agree).  The JAX
-    mixer's ``_blob_layout`` without its packed format, plus each filter
-    / fm item's step-group table ``("fgrp", j)`` (``filter.pack_bounds``,
+    mixer's ``_blob_layout`` (the packed format's streams and tables
+    ``rmq`` / ``("rmt", j)`` and ``rqr`` / ``("rqt", j)`` where the
+    signature's last element holds their sizes, else ``rm`` / ``rmp``),
+    without its sorted-accumulation permutation, plus each filter / fm
+    item's step-group table ``("fgrp", j)`` (``filter.pack_bounds``,
     [S + 2])."""
     (F, ninst, minst, mch, rows_sig, rpad, ns, nsm, ramppad,
      readback, quality, items, rmq) = sig
@@ -443,9 +452,19 @@ def blob_layout(sig):
     for i, (cls, NB) in enumerate(rows_sig):
         ent.append((("tbase", i), (NB,)))
     if rpad:
-        ent.append(("rm", (rpad, BASE_N)))
+        if rmq:
+            ent.append(("rmq", (_RMQ_WORDS, rpad)))
+            for j, sz in enumerate(rmq[0]):
+                ent.append((("rmt", j), (sz,)))
+        else:
+            ent.append(("rm", (rpad, BASE_N)))
     if ramppad:
-        ent.append(("rmp", (ramppad, RR_N)))
+        if rmq and rmq[1]:
+            ent.append(("rqr", (_RQR_WORDS, ramppad)))
+            for j, sz in enumerate(rmq[1]):
+                ent.append((("rqt", j), (sz,)))
+        else:
+            ent.append(("rmp", (ramppad, RR_N)))
     if ns:
         ent.append(("sa", (ns, 2, FRAG)))
         ent.append(("sas", (ns,)))
@@ -580,7 +599,11 @@ class TorchMixer:
     (padding, the numpy tables, step groups, the dense flags, the filter
     lane permutation) and writes one pinned blob, uploaded
     asynchronously on an upload stream; the body reads everything from
-    device buffers.  On the CPU the same bodies run eagerly.
+    device buffers.  On the CPU the same bodies run eagerly.  A profiled
+    mixer decides the JAX mixer's packed dispatch format once
+    (``_rmq_finalize``, or ``finalize_format`` for a fleet): the runmat
+    (and rampmat) then upload as packed words and value tables, and the
+    body decodes them with ``packed.unpack_call``.
 
     The oscillator runs through ``osc_kernel.osc_call``, the stage tail
     through the fbdelay / filter / fm wrappers (the CUDA kernels for
@@ -623,6 +646,14 @@ class TorchMixer:
         self._union_fbd = {}     # ns -> {unit_id -> template dict}
         self._union_filters = {}  # ns -> {filter class key -> {S,K}}
         self._fine = False       # exact-fit padding (observe())
+        # the packed dispatch format: None until decided (at the first
+        # signature after a profile pass, or finalize_format), then its
+        # tables or False (unpacked uploads); observe() gathers each
+        # packed column's values and each bit field's range
+        self._rmq = None
+        self._rmq_acc = {"uniq": [[] for _ in _RMQ_IDXCOLS],
+                         "runiq": [[] for _ in _RQR_IDXCOLS],
+                         "max": {}}
         self._pinned = {}        # (shape, dtype) -> free pinned buffers
         self._pin_lock = threading.Lock()
         self._pool = None        # the graphs' shared memory pool
@@ -650,8 +681,11 @@ class TorchMixer:
 
     def device_atlas(self):
         """The pair atlas on the mixer's device (uploaded again when
-        the atlas grows)."""
+        the atlas grows; an engine that has met no wave yet gets an empty
+        one, as in the JAX mixer)."""
         pa = self.core._pair_atlas
+        if pa is None:
+            self.core._pair_atlas = pa = OK.PairAtlas()
         with pa.lock:
             if pa.data is None:
                 pa.finalize()
@@ -719,6 +753,110 @@ class TorchMixer:
                 "S": fl["arr"].shape[0], "K": fl["arr"].shape[1],
                 "minq": min(fl.get("minq", 1 << 30),
                             old["minq"] if old else 1 << 30)}
+        # the packed format's profile, over the PADDED runmat and
+        # rampmat (so the dead runs' encoding is covered too): each
+        # table column's values and each bit field's range, unioned at
+        # _rmq_finalize
+        if self._rmq is None and prog.runmat is not None \
+                and prog.runmat.size:
+            rm = prog.runmat
+            acc = self._rmq_acc
+            for j, c in enumerate(_RMQ_IDXCOLS):
+                acc["uniq"][j].append(np.unique(rm[:, c]))
+            mx = acc["max"]
+            mx["rtot"] = max(mx.get("rtot", 0), int(prog.Rtot))
+            for key, col in (("start", RC_START), ("slot", RC_SLOT),
+                             ("len", RC_LEN), ("off", RC_OFF),
+                             ("mode", RC_MODE), ("phhi", RC_PHHI),
+                             ("ridx", RC_RIDX)):
+                v = rm[:, col]
+                mx[key] = max(mx.get(key, 0), int(v.max()))
+                mx[key + "_lo"] = min(mx.get(key + "_lo", 0),
+                                      int(v.min()))
+            rmp = getattr(prog, "rampmat", None)
+            if rmp is not None and rmp.size:
+                for j, c in enumerate(_RQR_IDXCOLS):
+                    acc["runiq"][j].append(np.unique(rmp[:, c]))
+                for key, col in (("rbase", RR_BASE), ("rmip", RR_MIP)):
+                    v = rmp[:, col]
+                    mx[key] = max(mx.get(key, 0), int(v.max()))
+                    mx[key + "_lo"] = min(mx.get(key + "_lo", 0),
+                                          int(v.min()))
+                if not np.array_equal(rmp[:, RR_PV], rmp[:, RR_PTGT]):
+                    mx["ptgt_ne"] = 1
+                mx["rseen"] = 1
+
+    def finalize_format(self):
+        """Decides the packed format now, for a fleet-shared mixer whose
+        whole fleet has profiled (``serve.render_multiplexed`` calls it
+        after the streams' profile passes): the tables union every
+        profiled stream's values.  A stream that later records a value
+        outside them raises ``Unsupported`` at its dispatch and bridges
+        natively."""
+        if self._rmq is None and self._fine:
+            self._rmq = self._rmq_finalize(force=True)
+
+    def _rmq_finalize(self, force=False):
+        """The JAX mixer's packed-format decision, made once per mixer
+        after the profile pass: the 7 sorted runmat value tables (and
+        the rampmat's 8, when every rampmat field fits) and their sizes,
+        or False (unpacked uploads) when ``A2_NO_PACK`` is set, a bit
+        field's range or a table's size breaks the format, or the mixer
+        is shared by a fleet (namespaces other than 0: a stream joining
+        later could record values outside the tables) and ``force`` is
+        not set."""
+        if os.environ.get("A2_NO_PACK") \
+                or (not force and set(self._hw.keys()) != {0}):
+            return False
+        acc = self._rmq_acc
+        mx = acc["max"]
+        if not mx:
+            return False
+        ok = (mx.get("rtot", 0) < (1 << 22)
+              and mx.get("start", 0) <= mx.get("rtot", 0)
+              and mx.get("start_lo", 0) >= 0
+              and mx.get("slot", 0) < (1 << 22)
+              and mx.get("slot_lo", 0) >= 0
+              and mx.get("len", 0) <= 255
+              and mx.get("len_lo", 0) >= 0
+              and 0 <= mx.get("off", 0) < 64
+              and mx.get("off_lo", 0) >= 0
+              and 0 <= mx.get("mode", 0) < 16
+              and mx.get("mode_lo", 0) >= 0
+              and -1 <= mx.get("phhi_lo", 0)
+              and mx.get("phhi", 0) < 62
+              and mx.get("ridx", 0) + 1 < (1 << 22)
+              and mx.get("ridx_lo", 0) >= -1)
+        if not ok:
+            return False
+        tables = []
+        for j in range(len(_RMQ_IDXCOLS)):
+            u = np.unique(np.concatenate(
+                acc["uniq"][j] + [np.zeros(1, np.int32)]))
+            if len(u) > 65535:
+                return False
+            tables.append(u.astype(np.int32))
+        # the rampmat's half: where its fields break the format, only
+        # the rampmat ships unpacked
+        rtables = None
+        if mx.get("rseen") and not mx.get("ptgt_ne") \
+                and 0 <= mx.get("rbase_lo", 0) \
+                and mx.get("rbase", 0) < (1 << 22) \
+                and 0 <= mx.get("rmip_lo", 0) \
+                and mx.get("rmip", 0) < 16:
+            rtables = []
+            for j in range(len(_RQR_IDXCOLS)):
+                u = np.unique(np.concatenate(
+                    acc["runiq"][j] + [np.zeros(1, np.int32)]))
+                if len(u) > 65535:
+                    rtables = None
+                    break
+                rtables.append(u.astype(np.int32))
+        return {"tables": tables,
+                "sizes": tuple(len(t) for t in tables),
+                "rtables": rtables,
+                "rsizes": (tuple(len(t) for t in rtables)
+                           if rtables else None)}
 
     def _repad(self, prog):
         """Pads every variable-size array up to its stream's high-water
@@ -953,9 +1091,10 @@ class TorchMixer:
     def _signature(self, prog):
         """The JAX mixer's signature tuple of a padded program: shapes,
         the stage tail's item structure in execution order, readback
-        and quality bits (16 float tier, 32 mono row expansion); the
-        last element (the JAX mixer's packed dispatch format) is None
-        until that format is ported."""
+        and quality bits (16 float tier, 32 mono row expansion), and the
+        packed format's table sizes ``(sizes, rsizes)`` or None.  The
+        first signature after a profile pass decides the format
+        (``_rmq_finalize``)."""
         rows = tuple((cls, NB) for cls, NB, _ in prog.class_blocks)
         rpad = prog.runmat.shape[0] if prog.runmat is not None else 0
         ramppad = prog.rampmat.shape[0] \
@@ -984,13 +1123,17 @@ class TorchMixer:
                           fl["arr"].shape[:2] + (ok,), ""))
         items.sort(key=lambda t: (t[1], t[3]))
         items = [t[:3] for t in items]
+        if self._rmq is None and self._fine:
+            self._rmq = self._rmq_finalize()
         return (prog.F, prog.ninst, prog.master_inst,
                 prog.master_channels, rows, rpad, ns, nsm,
                 ramppad if prog.has_ramp else 0, self.readback,
                 self.quality + (16 if self.stage_mode == "float" else 0)
                 + (32 if rpad and not getattr(prog, "rows_stereo", True)
                    else 0),
-                tuple(items), None)
+                tuple(items),
+                ((self._rmq["sizes"], self._rmq["rsizes"])
+                 if self._rmq else None))
 
     def device_bytes(self, prog):
         """Device memory of one stream at this program's signature, with
@@ -1015,6 +1158,11 @@ class TorchMixer:
         execb = (ninst * F + 1) * 2 * FRAG * 4             # slots
         execb += Rtot * (FRAG if quality & 32
                          else 2 * FRAG) * 4                # row audio
+        if rmq:
+            # the packed upload decodes into the full runmat (rampmat)
+            execb += rpad * BASE_N * 4
+            if rmq[1]:
+                execb += ramppad * RR_N * 4
         if ramppad:
             execb += (RUN_KCHUNK - 1) * ramppad * 10 * 4   # traj
         execb += ns * 2 * FRAG * 4 + nsm * FRAG * 4        # stash
@@ -1170,16 +1318,25 @@ class TorchMixer:
         64].  No host data and no host synchronisation: a CUDA graph
         captures it."""
         (F, ninst, minst, mch, rows_sig, rpad, ns, nsm, ramppad,
-         readback, quality, items, _) = sig
+         readback, quality, items, rmq) = sig
         dev = master.device
         mono = bool(quality & 32)
         nslot = ninst * F + 1
         slots = torch.zeros((nslot, 2, FRAG), dtype=torch.int32, device=dev)
         Rtot = sum(NB * OK.RPB for _, NB in rows_sig)
         if rpad and Rtot:
+            # the packed format decodes on the device (csrc/unpack_kernel.cu)
+            rm = PK.unpack_call("rmq", v["rmq"], [
+                v[("rmt", j)] for j in range(len(rmq[0]))]) if rmq \
+                else v["rm"]
+            rmp = None
+            if ramppad:
+                rmp = PK.unpack_call("rqr", v["rqr"], [
+                    v[("rqt", j)] for j in range(len(rmq[1]))]) \
+                    if rmq and rmq[1] else v["rmp"]
+                rmp = rmp.to(torch.int64)
             classes, slot_r = self._row_params(
-                v["rm"].to(torch.int64),
-                v["rmp"].to(torch.int64) if ramppad else None,
+                rm.to(torch.int64), rmp,
                 [v[("tbase", i)] for i in range(len(rows_sig))], rows_sig,
                 mono, nslot - 1)
             outs = []
@@ -1271,9 +1428,12 @@ class TorchMixer:
         state grown to the padded K), advances the host-side state (ring
         positions, lane serials) and fills the numpy upload blob,
         including the filter lane permutation (previous lane or -1) and
-        each filter / fm item's step groups.  Returns (sig, blob, pids,
-        (frag sizes, channels)).  Device work here (state conversions)
-        runs on the caller's stream."""
+        each filter / fm item's step groups; packs the runmat and
+        rampmat where the signature says so, raising ``Unsupported``
+        before any state moves when a value is outside the format's
+        tables.  Returns (sig, blob, pids, (frag sizes, channels)).
+        Device work here (state conversions) runs on the caller's
+        stream."""
         self._ensure_static()
         self._repad(prog)
         sig = self._signature(prog)
@@ -1288,10 +1448,28 @@ class TorchMixer:
 
         for i, (_, _, tb) in enumerate(prog.class_blocks):
             put(("tbase", i), tb)
-        if sig[5]:
-            put("rm", prog.runmat)
-        if sig[8]:
-            put("rmp", prog.rampmat)
+        rmq = sig[12]
+        try:
+            if sig[5]:
+                if rmq:
+                    put("rmq", PK._rmq_pack(prog.runmat,
+                                            self._rmq["tables"]))
+                    for j, t in enumerate(self._rmq["tables"]):
+                        put(("rmt", j), t)
+                else:
+                    put("rm", prog.runmat)
+            if sig[8]:
+                if rmq and rmq[1]:
+                    put("rqr", PK._rqr_pack(prog.rampmat,
+                                            self._rmq["rtables"]))
+                    for j, t in enumerate(self._rmq["rtables"]):
+                        put(("rqt", j), t)
+                else:
+                    put("rmp", prog.rampmat)
+        except ValueError as e:
+            # a value outside the profiled tables: content this mixer's
+            # format cannot express (the renderer bridges natively)
+            raise Unsupported(str(e)) from e
         if sig[6]:
             put("sa", prog.stash_audio)
             put("sas", prog.stash_slot)

@@ -17,8 +17,9 @@ The kernels are built once per process on a background thread (nvcc
 of the kernel libraries); ``render`` and ``run`` wait for the
 build, and a failed build is raised by ``wait_device`` and by them.
 Content the device program cannot express (the builder raises
-``Unsupported``), or a record error, makes the renderer restart on the
-pure native path, bit-exact either way; ``fell_back`` says so and
+``Unsupported``, or the mixer at a dispatch: a value outside the
+packed format's tables), or a record error, makes the renderer restart
+on the pure native path, bit-exact either way; ``fell_back`` says so and
 ``bridged_frames`` counts the frames rendered natively.  A fault of the
 device itself (a dispatch or a fetch) is raised, never rendered around.
 """
@@ -325,12 +326,17 @@ class DeviceRenderer:
             except (A2Exception, Unsupported):
                 self._fallback(self._rendered)
                 native = True
+        if not native:
+            t0 = time.perf_counter()
+            try:
+                out = np.stack(self.mixer.run(prog))
+            except Unsupported:
+                # a value outside the packed format's tables
+                self._fallback(self._rendered)
+                native = True
+            self.timings["mix"] += time.perf_counter() - t0
         if native:
             out = self._native_run(frames)
-        else:
-            t0 = time.perf_counter()
-            out = np.stack(self.mixer.run(prog))
-            self.timings["mix"] += time.perf_counter() - t0
         self._rendered += frames
         return out
 
@@ -497,12 +503,21 @@ class DeviceRenderer:
                 blocked = True
                 if dres[1] is not None:
                     # a dispatch fault: emit what the card finished
-                    # before it, then raise
-                    if join_fetches(True):
+                    # before it, then raise; content the mixer cannot
+                    # express (a value outside the packed format's
+                    # tables) continues natively from there instead
+                    done = join_fetches(True)
+                    if done:
                         for h in inflight:
                             emit(self.mixer.fetch(h))
-                    raise dres[1]
-                inflight.extend(dres[0])
+                    if not (done and isinstance(dres[1], Unsupported)):
+                        raise dres[1]
+                    inflight.clear()
+                    rec_out = []
+                    self._fallback(base + emitted[0])
+                    n = emitted[0]
+                else:
+                    inflight.extend(dres[0])
             if rec_out and (len(rec_out) >= C or n >= total_frames
                             or self.fell_back):
                 grp = rec_out

@@ -180,9 +180,10 @@ def render_multiplexed(jobs, bufsize=None, readback="exact",
 
     Per-stream output is bit-exact with a solo render.  A stream whose
     content the device program cannot express (its record raises
-    ``Unsupported`` or ``A2Exception``) is bridged to the native path
-    at its emitted frontier, sample-exactly, without disturbing the
-    others.  A stream whose dispatch or fetch fails on the card stops
+    ``Unsupported`` or ``A2Exception``, or its dispatch meets a value
+    outside the packed format's tables, ``Unsupported``) is bridged to
+    the native path at its emitted frontier, sample-exactly, without
+    disturbing the others.  A stream whose dispatch or fetch fails on the card stops
     with the error in its job's ``.error``; the others render on, and
     the first such error is raised at the end.
 
@@ -190,8 +191,8 @@ def render_multiplexed(jobs, bufsize=None, readback="exact",
     as ONE graph launch (TorchMixer.dispatch_many).  Each group's batch
     graph is captured after profiling; when a group's members drain
     unevenly (different stream lengths, or a member bridges natively)
-    the rest dispatch one by one.  A failed batched dispatch fails every
-    stream of the group."""
+    the rest dispatch one by one.  A failed batched dispatch bridges
+    (``Unsupported``) or fails every stream of the group."""
     from .cuda.mixer import TorchMixer
 
     core = _SharedCore()
@@ -253,9 +254,10 @@ def render_multiplexed(jobs, bufsize=None, readback="exact",
     if profile:
         for s in streams:
             s.r._profile(s.j.frames, bufsize)
-        # the JAX package freezes its packed dispatch format over the
-        # fleet here (finalize_format); the port has no packed format
-        # yet (ROADMAP.md section 1), so its uploads stay unpacked
+        # the whole fleet has profiled: freeze the packed dispatch format
+        # over every stream's recorded values (a stream that records a
+        # value outside them later bridges natively at its dispatch)
+        mixer.finalize_format()
         progs = [s.r._profiled_prog for s in streams
                  if s.r._profiled_prog is not None]
         # refuse a fleet whose device-resident state cannot fit before
@@ -382,10 +384,12 @@ def render_multiplexed(jobs, bufsize=None, readback="exact",
             blocked = True
             grp, hs, err = dres
             if err is not None:
+                # the group's superblocks never ran: content the device
+                # cannot express (a value outside the packed format's
+                # tables) bridges its streams, any other fault fails them
                 for s2, _ in grp:
                     if s2.live:
-                        drop_inflight(s2)
-                        s2.j.error = err
+                        stop(s2, err)
             else:
                 for (s2, _), h in zip(grp, hs):
                     if s2.live:

@@ -7,14 +7,15 @@ every deferred oscillator slice to one control ROW
 
     row -> 64 frames of  hermite-interpolated wavetable  ->  vol/pan
 
-with two backends of identical integer semantics (int64, exact mirrors
-of the host units' math):
+with backends of identical integer semantics (int64, exact mirrors of
+the host units' math):
   * ``rows_numpy`` on the host, below ``RowBatch.JAX_MIN_ROWS`` rows or
     when the engine was opened with ``use_jax=False``;
-  * ``rows_torch``, plain PyTorch tensor ops on ``RowBatch.device``
-    (the card), or on the device that ``row_device`` sets for the
-    calling thread, the counterpart of the JAX package's jitted
-    ``rows_jax``.
+  * the counterpart of the JAX package's jitted ``rows_jax`` on
+    ``RowBatch.device`` (the card), or on the device that
+    ``row_device`` sets for the calling thread: the CUDA kernel
+    (``rows_cuda``, ``cuda/rows.py``) on a CUDA device, its plain
+    PyTorch version (``rows_torch``) on any other.
 
 Row layout (int64 unless noted):
   base   atlas offset of d[0] for the chosen mip level
@@ -34,6 +35,8 @@ import threading
 
 import numpy as np
 import torch
+
+from ..cuda import rows as CR
 
 FRAG = 64
 
@@ -87,82 +90,68 @@ def rows_numpy(atlas, base, ph0, dph, amp0, damp, haspm, stereo, clamp,
     return np.stack([ch0, ch1], axis=1)
 
 
-def _hermite_t(atlas, pos, x):
-    dm1 = torch.take(atlas, pos - 1)
-    d0 = torch.take(atlas, pos)
-    d1 = torch.take(atlas, pos + 1)
-    d2 = torch.take(atlas, pos + 2)
-    xx = x << 7
-    c = (d1 - dm1) >> 1
-    a = (3 * (d0 - d1) + d2 - dm1) >> 1
-    b = dm1 - d0 + c - a
-    a = (a * xx) >> 15
-    a = ((a + b) * xx) >> 15
-    return d0 + (((a + c) * xx) >> 15)
-
-
-def _rows_t(atlas, base, ph0, dph, amp0, damp, haspm, stereo, clamp,
-            vol0, dvol, pan0, dpan):
-    """rows_numpy on int64 / bool tensors of one device; atlas int64."""
-    n = torch.arange(FRAG, dtype=torch.int64, device=atlas.device)
-    ph = ph0[:, None] + n[None, :] * dph[:, None]
-    ph16 = ph >> 16
-    dph16 = (dph >> 16)[:, None]
-    v1 = _hermite_t(atlas, base[:, None] + (ph16 >> 8), ph16 & 0xFF)
-    ph2 = ph16 + (dph16 >> 1)
-    v2 = _hermite_t(atlas, base[:, None] + (ph2 >> 8), ph2 & 0xFF)
-    amp = amp0[:, None] + n[None, :] * damp[:, None]
-    osc = ((v1 + v2) * amp) >> 17
-
-    vol = vol0[:, None] + n[None, :] * dvol[:, None]
-    pan = pan0[:, None] + n[None, :] * dpan[:, None]
-    vp = (pan * vol) >> 24
-    v0 = vol - vp
-    v1g = vol + vp
-    lim = vol << 1
-    cl = clamp[:, None]
-    v0 = torch.where(cl, torch.minimum(v0, lim), v0)
-    v1g = torch.where(cl, torch.minimum(v1g, lim), v1g)
-    mono_pm = (osc * vol) >> 24
-    l_pm = (osc * v0) >> 24
-    r_pm = (osc * v1g) >> 24
-
-    st = stereo[:, None]
-    hp = haspm[:, None]
-    ch0 = torch.where(hp, torch.where(st, l_pm, mono_pm), osc)
-    ch1 = torch.where(hp & st, r_pm, torch.zeros_like(osc))
-    return torch.stack([ch0, ch1], dim=1)
-
-
-# the device copy of the last atlas evaluated: the WaveAtlas object, its
-# version, the device and the int64 tensor (uploaded once per version,
-# not per evaluation)
+# the device copies of the last atlas evaluated, by dtype: the WaveAtlas
+# object, its version, the device and the tensor (uploaded once per
+# version, not per evaluation)
 _DEV_ATLAS = {}
+
+
+def _device_atlas(atlas_obj, dev):
+    c = _DEV_ATLAS
+    if c.get("atlas") is not atlas_obj or c["version"] \
+            != atlas_obj.version or c["device"] != dev:
+        c.clear()
+        c.update(atlas=atlas_obj, version=atlas_obj.version, device=dev,
+                 data=torch.as_tensor(np.asarray(atlas_obj.data,
+                                                 np.int32), device=dev))
+    return c["data"]
+
+
+def _device_params(args, dev):
+    """The 12 numpy row arrays as one int64 [12, N] tensor on dev (one
+    upload)."""
+    return torch.as_tensor(np.stack([np.asarray(a, np.int64)
+                                     for a in args]), device=dev)
 
 
 def rows_torch(atlas_obj, *args, device="cuda"):
     """rows_numpy's result for the numpy row arrays `args`, computed
-    with PyTorch on `device`; returns int64 numpy [N, 2, 64].
-    atlas_obj is a WaveAtlas (numpy .data + .version)."""
+    by the plain PyTorch version (``cuda.rows.rows_plain``) on
+    `device`; returns int64 numpy [N, 2, 64].  atlas_obj is a
+    WaveAtlas (numpy .data + .version)."""
+    dev = _check_device(device)
+    return CR.rows_plain(_device_atlas(atlas_obj, dev),
+                         _device_params(args, dev)).cpu().numpy()
+
+
+def rows_cuda(atlas_obj, *args, device="cuda"):
+    """rows_torch's result from the CUDA kernel (``cuda.rows.rows_call``)
+    on the CUDA device `device`."""
+    dev = _check_device(device)
+    if dev.type != "cuda":
+        raise ValueError("rows_cuda: %s is not a CUDA device" % dev)
+    return CR.rows_call(_device_atlas(atlas_obj, dev),
+                        _device_params(args, dev)).cpu().numpy()
+
+
+def _check_device(device):
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "RowBatch: the device row path needs a CUDA device and none "
             "is available; open the engine with use_jax=False to "
             "evaluate rows on the host")
-    c = _DEV_ATLAS
-    if c.get("atlas") is not atlas_obj or c["version"] \
-            != atlas_obj.version or c["device"] != dev:
-        c.clear()
-        c.update(atlas=atlas_obj, version=atlas_obj.version, device=dev,
-                 data=torch.as_tensor(atlas_obj.data, device=dev)
-                 .to(torch.int64))
-    t = [torch.as_tensor(a, device=dev) for a in args]
-    return _rows_t(c["data"], *t).cpu().numpy()
+    return dev
 
 
 # the calling thread's row device (row_device), over RowBatch.device
 _thread = threading.local()
+
+
+def thread_device():
+    """The calling thread's row device: ``row_device``'s, else
+    ``RowBatch.device``."""
+    return getattr(_thread, "device", None) or RowBatch.device
 
 
 @contextlib.contextmanager
@@ -244,9 +233,9 @@ class RowBatch:
     def evaluate(self, atlas_obj, use_jax=True):
         """Returns int64[n, 2, 64] row audio.  atlas_obj is a
         WaveAtlas (numpy data + version for device caching).  use_jax
-        (the engine's config name) selects the device path, rows_torch
-        on ``device`` (or the thread's ``row_device``), for batches of
-        at least JAX_MIN_ROWS rows."""
+        (the engine's config name) selects the device path on
+        ``thread_device()`` for batches of at least JAX_MIN_ROWS rows:
+        the CUDA kernel on a CUDA device, rows_torch on another."""
         if not self.n:
             return np.zeros((0, 2, FRAG), dtype=np.int64)
         if use_jax and self.n < self.JAX_MIN_ROWS:
@@ -267,9 +256,11 @@ class RowBatch:
                 arr(self.vol0), arr(self.dvol), arr(self.pan0),
                 arr(self.dpan))
         if use_jax:
-            out = rows_torch(atlas_obj, *args,
-                             device=getattr(_thread, "device", None)
-                             or self.device)
+            dev = thread_device()
+            if torch.device(dev).type == "cuda":
+                out = rows_cuda(atlas_obj, *args, device=dev)
+            else:
+                out = rows_torch(atlas_obj, *args, device=dev)
         else:
             out = rows_numpy(atlas_obj.data, *args)
         return out[:self.n]

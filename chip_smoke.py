@@ -91,6 +91,7 @@ build (for quick checks; the full run takes no argument).
 
 import argparse
 import contextlib
+import copy
 import io
 import itertools
 import json
@@ -112,13 +113,19 @@ from audiality2_tpu_torch.cuda import filter as FL
 from audiality2_tpu_torch.cuda import filter_float as FF
 from audiality2_tpu_torch.cuda import fm as FM
 from audiality2_tpu_torch.cuda import osc_kernel as OK
-from audiality2_tpu_torch.cuda.mixer import KERNEL_WRAPPERS, _FLOAT_TIER_MINQ
+from audiality2_tpu_torch.cuda import packed as PK
+from audiality2_tpu_torch.cuda import rows as CR
+from audiality2_tpu_torch.cuda.mixer import (KERNEL_WRAPPERS,
+                                             _FLOAT_TIER_MINQ, TorchMixer,
+                                             blob_layout)
+from audiality2_tpu_torch.cuda.superblock import RC_LEN, RR_PTGT, RR_PV
 from audiality2_tpu_torch.engine.device_render import (DeviceRenderer,
                                                        SUPERBLOCK_FRAMES)
 from audiality2_tpu_torch import cli, serve
 from audiality2_tpu_torch.native import NativeRenderer
 from audiality2_tpu_torch.songs import SONGS
 from audiality2_tpu_torch.tail_ab import graph_ms
+from audiality2_tpu_torch.tpu import row_kernel as TRK
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 44100
@@ -216,20 +223,75 @@ def native_render(song, channels, frames, args=(), sb=SUPERBLOCK_FRAMES):
     return want
 
 
+# every kernel wrapper: the mixer's, and the host engine's row batch
+WRAPPERS = dict(KERNEL_WRAPPERS, rows=CR.rows_call)
+# the wrappers that also count by kind
+KIND_WRAPPERS = (("filter", FL.filter_call, FL.KINDS),
+                 ("filter_float", FF.filter_float_call, FL.KINDS),
+                 ("unpack", PK.unpack_call, tuple(PK.KINDS)))
+
+
 def zero_launches():
-    for fn in KERNEL_WRAPPERS.values():
+    for fn in WRAPPERS.values():
         fn.launches = 0
-    FL.filter_call.kind_launches = dict.fromkeys(FL.KINDS, 0)
-    FF.filter_float_call.kind_launches = dict.fromkeys(FL.KINDS, 0)
+    for _, fn, kinds in KIND_WRAPPERS:
+        fn.kind_launches = dict.fromkeys(kinds, 0)
 
 
 def read_launches():
-    launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
-    for name, fn in (("filter", FL.filter_call),
-                     ("filter_float", FF.filter_float_call)):
+    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    for name, fn, _ in KIND_WRAPPERS:
         launches.update((name + "_" + k, n)
                         for k, n in fn.kind_launches.items())
     return launches
+
+
+def mixer_formats(mixer):
+    """The packed-format element of every signature the mixer ran (its
+    single, chain and batch entries)."""
+    sigs = list(mixer._fns)
+    for key in mixer._chain_fns:
+        sigs += list(key[1]) if key[0] == "many" else [key[1]]
+    return [sig[12] for sig in sigs]
+
+
+def check_packed(label, formats, launches, need):
+    """Each mixer of a profiled render decided its packed format once
+    (formats: per mixer, the format element of its signatures, all
+    equal), and the decoder kernel launched exactly when a mixer's
+    format is on.  need: a mixer's format must be on.  (The format's
+    field caps decide it as the JAX package's do: at superblocks of 2752
+    fragments a run longer than 255 fragments, a sustained note, breaks
+    the 8-bit LEN field, and the song ships its tables unpacked.)
+    Returns whether a mixer ran packed."""
+    for f in formats:
+        check(f and all(x == f[0] for x in f), "%s: a mixer's signatures "
+              "with different formats: %s" % (label, f))
+    packed = any(f[0] is not None for f in formats)
+    check(packed or not need, "%s: the packed format is off" % label)
+    check((launches["unpack"] > 0) == packed, "%s: %d unpack launches "
+          "with the format %s" % (label, launches["unpack"],
+                                  "on" if packed else "off"))
+    return packed
+
+
+@contextlib.contextmanager
+def formats_seen():
+    """The packed-format element of every signature that any TorchMixer
+    takes inside the block (for a render whose mixer is out of reach,
+    the CLI's)."""
+    seen = []
+    real = TorchMixer._signature
+
+    def spy(self, prog):
+        sig = real(self, prog)
+        seen.append(sig[12])
+        return sig
+    TorchMixer._signature = spy
+    try:
+        yield seen
+    finally:
+        TorchMixer._signature = real
 
 
 def first_program(song, channels):
@@ -269,7 +331,7 @@ def phase_build():
     finally:
         nout, _ = native.communicate(timeout=build.BUILD_TIMEOUT_S)
     check(native.returncode == 0, "native build failed:\n" + nout)
-    for mod in (OK, FB, FL, FM, FF):
+    for mod in (OK, FB, FL, FM, FF, PK, CR):
         mod._load()
     ptxas = ["%s: %s" % (n, " | ".join(
         ln.strip() for ln in build.build_log.get(n, "").splitlines()
@@ -715,7 +777,9 @@ def render_check(song, channels, seconds, label, need,
     fell_back, bridged = r.fell_back, r.bridged_frames
     timings = dict(r.timings)
     replays = r.mixer.replays
+    formats = mixer_formats(r.mixer)
     r.close()
+    check_packed(label, [formats], launches, "unpack" in need)
     check(out.shape == (channels, frames) and out.dtype == np.int32,
           "%s: output shape %s" % (label, out.shape))
     check(np.abs(out).max() > 0, "%s: silent output" % label)
@@ -759,8 +823,7 @@ def phase_slice():
 def phase_effects():
     t0 = time.perf_counter()
     launches, xrt, tm, dt, _, _ = render_check(
-        "effects", 2, 10.0, "effects stereo 10 s",
-        ["osc_rows", "fbdelay_dense", "filter", "fm"])
+        "effects", 2, 10.0, "effects stereo 10 s", PATH_KERNELS["effects"])
     phase("effects", t0, "stereo 10 s == native, %.1f x realtime (%.3f s: "
           "%s); launches %s" % (xrt, dt, split(tm), json.dumps(launches)))
     return launches
@@ -784,10 +847,12 @@ def phase_legacy():
 KERNEL_NAMES = {"osc_rows": "osc_rows_kernel",
                 "fbdelay_dense": "fbd_dense_kernel",
                 "fbdelay_legacy": "fbd_legacy_kernel",
-                "filter": "filter_kernel", "fm": "fm_kernel"}
+                "filter": "filter_kernel", "fm": "fm_kernel",
+                "unpack": "rmq_unpack_kernel"}
 # the kernels of each song's path
 PATH_KERNELS = {"slice": ["osc_rows"],
-                "effects": ["osc_rows", "fbdelay_dense", "filter", "fm"],
+                "effects": ["osc_rows", "fbdelay_dense", "filter", "fm",
+                            "unpack"],
                 "late_fbdelay": ["fbdelay_legacy"]}
 
 
@@ -868,6 +933,10 @@ def timed_render(song, channels, frames, pipelined, stage_mode="exact"):
     busy = r.mixer.device_seconds()
     check(not r.fell_back and r.bridged_frames == 0,
           "%s timing render bridged natively" % song)
+    # a profiled (pipelined) effects render packs; `run` never profiles
+    check(not pipelined or song != "effects"
+          or mixer_formats(r.mixer)[0] is not None,
+          "%s timing render: the packed format is off" % song)
     res = (wall, dict(r.timings), busy, r.mixer.replays, r.mixer.captures,
            r.mixer.capture_s, out)
     r.close()
@@ -971,16 +1040,19 @@ def phase_pipeline():
 
 
 def phase_serve():
-    """render_multiplexed of four streams (batch 2) and render_many of
+    """render_multiplexed of four streams (batch 2) and of two effects
+    streams (a fleet whose finalized format packs), and render_many of
     two, each stream against its solo native render."""
     t0 = time.perf_counter()
     frames = int(10.0 * SR)
     notes = []
     results = {}
-    for mode, specs in (
+    for mode, specs, need in (
             ("multiplexed", [("slice", ()), ("slice", ()),
-                             ("effects", ()), ("effects", (0.25,))]),
-            ("many", [("slice", ()), ("effects", (0.25,))])):
+                             ("effects", ()), ("effects", (0.25,))], False),
+            ("multiplexed effects", [("effects", ()), ("effects", (0.25,))],
+             True),
+            ("many", [("slice", ()), ("effects", (0.25,))], True)):
         jobs = []
         for song, args in specs:
             src, program = SONGS[song]
@@ -991,7 +1063,7 @@ def phase_serve():
         zero_launches()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        if mode == "multiplexed":
+        if mode.startswith("multiplexed"):
             serve.render_multiplexed(jobs, bufsize=SUPERBLOCK_FRAMES,
                                      batch=2)
         else:
@@ -1000,8 +1072,14 @@ def phase_serve():
         dt = time.perf_counter() - t1
         launches = read_launches()
         for k in PATH_KERNELS["effects"]:
+            if k == "unpack":
+                continue
             check(launches[k] > 0, "serve %s: the %s kernel never "
                   "launched" % (mode, k))
+        mixers = {id(j.renderer.mixer): j.renderer.mixer for j in jobs}
+        check_packed("serve " + mode, [mixer_formats(m)
+                                       for m in mixers.values()],
+                     launches, need)
         for j, (song, args) in zip(jobs, specs):
             check(j.error is None and not j.renderer.fell_back,
                   "serve %s: %s %s bridged natively" % (mode, song, args))
@@ -1171,7 +1249,8 @@ def phase_float():
             plain[song] = plain_float_render(song, ch, int(secs * SR))
             plain_s = time.perf_counter() - t1
         launches, xrt, tm, dt, replays, db = render_check(
-            song, ch, secs, label, (), max_db=max_db, stage_mode="float",
+            song, ch, secs, label, ("unpack",) if song == "effects" else (),
+            max_db=max_db, stage_mode="float",
             chain_dispatch=4, same_as=plain.get(song))
         for k in need:
             check(launches["filter_float_" + k] > 0, "%s: the float %s "
@@ -1249,10 +1328,11 @@ def phase_cli():
             label = " ".join(["a2play-gpu"] + switches)
             out = io.StringIO()
             zero_launches()
-            with contextlib.redirect_stdout(out):
+            with contextlib.redirect_stdout(out), formats_seen() as fmts:
                 rc = cli.main(switches + ["-c", "2", "-st", "10", "-o", wav,
                                           path])
             launches = read_launches()
+            check_packed(label, [fmts], launches, True)
             check(rc == 0, "%s: exit code %d:\n%s"
                   % (label, rc, out.getvalue()))
             with open(wav, "rb") as f:
@@ -1281,8 +1361,354 @@ def phase_cli():
     return res
 
 
+# ---------------------------------------------------------------
+# the packed dispatch format, the host engine's device mixer and row
+# batch
+# ---------------------------------------------------------------
+
+def decode_pair(kind, pk, tabs):
+    """The decoder kernel against its plain version on the card, on the
+    numpy pack and tables: (the kernel's output, mismatches, max abs
+    difference)."""
+    pk_d = torch.from_numpy(np.ascontiguousarray(pk)).to(DEVICE)
+    tabs_d = [torch.from_numpy(t).to(DEVICE) for t in tabs]
+    got = PK.unpack_call(kind, pk_d, tabs_d)
+    want = PK._PLAIN[kind](pk_d, tabs_d)
+    bad, err = mismatches([(got, want)])
+    return got.cpu().numpy(), bad, err
+
+
+def own_tables(mat, cols):
+    """Value tables made from a table's own columns (with 0, as the
+    mixer's _rmq_finalize makes them)."""
+    return [np.unique(np.concatenate([mat[:, c], [0]])).astype(np.int32)
+            for c in cols]
+
+
+def host_ms(fn, reps):
+    """The median host ms of reps calls of fn()."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def real_format(song, frames):
+    """The first stereo superblock of `frames` frames of `song` on a
+    profiled card mixer (observed, so that its signature decides the
+    format): (mixer, padded program, signature)."""
+    r = open_song(song, 2, DeviceRenderer, device=DEVICE)
+    prog = r.record_program(frames)
+    r.close()
+    m = r.mixer
+    m.observe(prog)
+    return m, prog, m._signature(prog)
+
+
+def time_decoder(kind, pk, tabs):
+    """(kernel ms, plain ms, bytes, ops) of one decode at this shape."""
+    pk_d = torch.from_numpy(np.ascontiguousarray(pk)).to(DEVICE)
+    tabs_d = [torch.from_numpy(t).to(DEVICE) for t in tabs]
+    ms = graph_ms(lambda: PK.unpack_call(kind, pk_d, tabs_d))
+    plain_ms = cuda_ms(lambda: PK._PLAIN[kind](pk_d, tabs_d), reps=5)
+    nbytes, nops = PK.work(kind, pk.shape[1], [len(t) for t in tabs])
+    return ms, plain_ms, nbytes, nops
+
+
+def rqr_through_mixer():
+    """The rampmat half of the format through the mixer: the slice song's
+    first two superblocks of 172 fragments (where the runmat packs) with
+    each ramp run's PTGT set to its PV
+    (the format's invariant, which the native record does not keep: its
+    ramp runs end fragment 0 inside a pitch ramp, so profiled renders
+    ship the rampmat unpacked), on a card mixer (a captured graph) and
+    on a CPU mixer: the masters bit-equal, both decoders launched.
+    Returns the launches."""
+    r = open_song("slice", 2, DeviceRenderer, device=DEVICE)
+    progs = [r.record_program(SUPERBLOCK_FRAMES // 16) for _ in range(2)]
+    r.close()
+    for p in progs:
+        p.rampmat[:, RR_PTGT] = p.rampmat[:, RR_PV]
+    outs = {}
+    launches = None
+    for dev in (DEVICE, "cpu"):
+        m = TorchMixer(r.mixer.core, device=dev)
+        cp = copy.deepcopy(progs)
+        for p in cp:
+            m.observe(p)
+        if dev == DEVICE:
+            m.precompile(cp[0])
+            zero_launches()
+        outs[dev] = [np.stack(m.run(p)) for p in cp]
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            launches = read_launches()
+        check(all(f is not None and f[1] is not None
+                  for f in mixer_formats(m)),
+              "rqr through the mixer: the rampmat did not pack (%s)"
+              % mixer_formats(m))
+    bad = sum(int((a != b).sum()) for a, b in zip(outs[DEVICE],
+                                                  outs["cpu"]))
+    check(bad == 0, "rqr through the mixer: %d samples differ between the "
+          "card and the CPU" % bad)
+    check(launches["unpack_rqr"] > 0 and launches["unpack_rmq"] > 0,
+          "rqr through the mixer: launches %s" % launches)
+    return launches
+
+
+def phase_packed():
+    """The decoders against their plain versions (seeded packs, the slice
+    and effects songs' first superblocks), pack -> kernel unpack equal
+    to the padded tables, decoder times beside their bounds, the blob
+    bytes packed and unpacked and the host time of packing, and the
+    rampmat half through the mixer.  Returns the kernel's JSON record
+    (launches filled in from the slice phase)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    nvar = err = 0
+    for kind in PK.KINDS:
+        ntab = PK.KINDS[kind][1]
+        for n, sizes in ((1000, None), (1000, [1] * ntab), (77, None),
+                         (50000, None), (50000, [65535] * ntab)):
+            pk, tabs = PK.seeded_format(rng, kind, n, sizes)
+            _, bad, e = decode_pair(kind, pk, tabs)
+            check(bad == 0, "unpack %s seeded n %d: %d mismatches"
+                  % (kind, n, bad))
+            nvar, err = nvar + 1, max(err, e)
+    notes = ["%d seeded packs equal to the plain version" % nvar]
+    kinds = {}
+    real = {}
+    # the effects song packs at the main path's superblock; the slice
+    # song's sustained notes (runs of up to 553 fragments) break the LEN
+    # field there, and its tables pack at superblocks of 172 fragments
+    for song, frames, need in (("effects", SUPERBLOCK_FRAMES, True),
+                               ("slice", SUPERBLOCK_FRAMES, False),
+                               ("slice", SUPERBLOCK_FRAMES // 16, True)):
+        label = "%s %d-frame superblock 0" % (song, frames)
+        m, prog, sig = real_format(song, frames)
+        nb_plain = blob_layout(sig[:12] + (None,))[1] * 4
+        info = {"runs": int(prog.runmat.shape[0]),
+                "max_run_fragments": int(prog.runmat[:, RC_LEN].max()),
+                "format": sig[12], "blob_bytes_unpacked": nb_plain}
+        real[label] = info
+        check(sig[12] is not None or not need, "%s: the profiled mixer "
+              "did not pack" % label)
+        if sig[12] is None:
+            notes.append("%s: %d runs of up to %d fragments, format off "
+                         "(LEN field), blob %d B unpacked"
+                         % (label, info["runs"], info["max_run_fragments"],
+                            nb_plain))
+            continue
+        tabs = m._rmq["tables"]
+        pk = PK._rmq_pack(prog.runmat, tabs)
+        got, bad, e = decode_pair("rmq", pk, tabs)
+        check(bad == 0, "unpack rmq on the %s: %d mismatches"
+              % (label, bad))
+        check(np.array_equal(got, prog.runmat), "%s: pack -> kernel "
+              "unpack differs from the padded runmat" % label)
+        err = max(err, e)
+        rmp = prog.rampmat
+        ne = 0
+        if rmp is not None and rmp.shape[0]:
+            rtabs = own_tables(rmp, PK._RQR_IDXCOLS)
+            rpk = PK._rqr_pack(rmp, rtabs)
+            got, bad, e = decode_pair("rqr", rpk, rtabs)
+            want = rmp.copy()
+            want[:, RR_PTGT] = want[:, RR_PV]
+            check(bad == 0 and np.array_equal(got, want),
+                  "unpack rqr on the %s: %d mismatches against the plain "
+                  "version, or not the padded rampmat" % (label, bad))
+            err = max(err, e)
+            ne = int((rmp[:, RR_PV] != rmp[:, RR_PTGT]).sum())
+        nb_packed = blob_layout(sig)[1] * 4
+        pack_ms = host_ms(lambda: PK._rmq_pack(prog.runmat, tabs), 20)
+        prep_ms = host_ms(lambda: m._prepare(copy.deepcopy(prog)), 5)
+        info.update({
+            "ramp_runs": int(rmp.shape[0]) if rmp is not None else 0,
+            "ramp_runs_ptgt_ne_pv": ne,
+            "blob_bytes_packed": nb_packed,
+            "pack_host_ms": pack_ms, "prepare_host_ms": prep_ms})
+        for kind, kpk, ktabs, shape in (
+                ("rmq", pk, tabs, "%d runs" % pk.shape[1]),
+                ("rqr", rpk, rtabs, "%d ramp runs" % rpk.shape[1])):
+            ms, plain_ms, nbytes, nops = time_decoder(kind, kpk, ktabs)
+            bms, by = bound(nbytes, nops)
+            kinds.setdefault(kind, {})[label] = {
+                "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                "ops": nops}
+        notes.append(
+            "%s: %d runs (%d ramp runs, %d with PTGT != PV), pack -> "
+            "kernel unpack == the padded tables; blob %d B packed / %d B "
+            "unpacked; host pack %.3f ms of a %.3f ms _prepare; decoders "
+            "%s" % (label, info["runs"], info["ramp_runs"], ne, nb_packed,
+                    nb_plain, pack_ms, prep_ms, "; ".join(
+                        "%s %s %.4f ms (plain %.3f ms, bound %.4f ms)"
+                        % (k, v[label]["shape"], v[label]["ms"],
+                           v[label]["plain_ms"], v[label]["bound_ms"])
+                        for k, v in kinds.items())))
+    rqr_launches = rqr_through_mixer()
+    notes.append("rampmat packed through the mixer (PTGT := PV): card == "
+                 "CPU, launches rmq %d rqr %d"
+                 % (rqr_launches["unpack_rmq"], rqr_launches["unpack_rqr"]))
+    phase("packed", t0, " | ".join(notes))
+    # the main path's shape: the effects song's superblock
+    main = "effects %d-frame superblock 0" % SUPERBLOCK_FRAMES
+    k = kinds["rmq"][main]
+    return record("unpack", "audiality2_tpu_torch/cuda/csrc/unpack_kernel.cu",
+                  "audiality2_tpu/tpu/superblock.py:2932", k["ms"],
+                  k["plain_ms"], k["bytes"], k["ops"], err,
+                  variants_checked=nvar, shape=main,
+                  kinds={x: dict(v[main], replaces="audiality2_tpu/tpu/"
+                                 "superblock.py:%d" % (2932 if x == "rmq"
+                                                       else 2908))
+                         for x, v in kinds.items()},
+                  by_shape=kinds, real=real,
+                  rqr_through_mixer={x: rqr_launches["unpack_" + x]
+                                     for x in PK.KINDS})
+
+
+def host_render(song, channels, frames, bufsize, **config):
+    """`song` through the host engine (``open_engine(..., **config)``) in
+    buffers of `bufsize` frames: (channels, frames) int32, its core."""
+    src, program = SONGS[song]
+    i = a2.open_engine(SR, bufsize, channels, **config)
+    s = i.get(i.load_string(src, song), program)
+    out = []
+    i.sink_callback(lambda bufs, n: out.append(
+        np.stack([np.array(bufs[c][:n]) for c in range(channels)])))
+    i.timestamp_reset()
+    i.starta(i.root_voice(), s, [])
+    for _ in range(-(-frames // bufsize)):
+        i.run(bufsize)
+    return np.concatenate(out, axis=1)[:, :frames], i.state.core
+
+
+def phase_device_mix():
+    """The host engine's device mixer (device_mix=True) on the card:
+    the slice song through TorchMixer equal to host replay (rows in
+    numpy) and to native; the effects song falls back to host replay.
+    Returns the slice render's launches."""
+    t0 = time.perf_counter()
+    frames = int(2.0 * SR)
+    bufsize = 4096
+    notes = []
+    res = {}
+    for song in ("slice", "effects"):
+        want = native_render(song, 2, frames, sb=bufsize)
+        host, _ = host_render(song, 2, frames, bufsize, use_jax=False)
+        check(int((host != want).sum()) == 0, "%s: host replay differs "
+              "from native" % song)
+        zero_launches()
+        t1 = time.perf_counter()
+        got, core = host_render(song, 2, frames, bufsize, device_mix=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches = read_launches()
+        bad = int((got != host).sum())
+        check(bad == 0, "%s device_mix: %d samples differ from host replay"
+              % (song, bad))
+        dm = core.device_mixer
+        if song == "slice":
+            check(dm is not None and dm.device.type == "cuda",
+                  "slice device_mix: no mixer on the card")
+            check(launches["osc_rows"] > 0, "slice device_mix: the "
+                  "oscillator kernel never launched")
+            res[song] = launches
+        else:
+            check(dm is None and not core._device_committed,
+                  "effects device_mix did not fall back to host replay")
+        notes.append("%s stereo 2 s device_mix == host replay == native, "
+                     "%s, %.1f x realtime; launches %s" % (
+                         song, "mixer on %s (%d graph launches, %d "
+                         "captures)" % (dm.device, dm.replays, dm.captures)
+                         if dm is not None else "host replay (fell back)",
+                         2.0 / dt, json.dumps(
+                             {k: v for k, v in launches.items() if v})))
+    phase("device_mix", t0, " | ".join(notes))
+    return res["slice"]
+
+
+def phase_rows():
+    """The row kernel against its plain version (seeded rows, and the
+    slice song's real batches), timed at the real shape; the batched
+    host engine (use_jax=True) with superblocks of at least JAX_MIN_ROWS
+    rows equal to its numpy rows and to native.  Returns (the kernel's
+    JSON record, the engine render's launches)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    nvar = err = 0
+    for n in (1, 64, 1000, 16384):
+        atlas, p = CR.seeded_rows(rng, n)
+        a_d, p_d = on(DEVICE, atlas, p)
+        bad, e = mismatches([(CR.rows_call(a_d, p_d),
+                              CR.rows_plain(a_d, p_d))])
+        check(bad == 0, "rows kernel != plain on %d seeded rows: %d "
+              "mismatches" % (n, bad))
+        nvar, err = nvar + 1, max(err, e)
+    bufsize = 16384
+    frames = 6 * bufsize
+    want = native_render("slice", 2, frames, sb=bufsize)
+    host, _ = host_render("slice", 2, frames, bufsize, use_jax=False)
+    check(int((host != want).sum()) == 0, "rows: the host engine's numpy "
+          "rows differ from native")
+    # the batches the engine sends to the card, kept for the kernel check
+    batches = []
+    real_cuda = TRK.rows_cuda
+
+    def keep(atlas_obj, *args, **kw):
+        batches.append((atlas_obj.data.copy(), [np.array(a) for a in args]))
+        return real_cuda(atlas_obj, *args, **kw)
+    TRK.rows_cuda = keep
+    zero_launches()
+    try:
+        t1 = time.perf_counter()
+        got, _ = host_render("slice", 2, frames, bufsize, use_jax=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+    finally:
+        TRK.rows_cuda = real_cuda
+    launches = read_launches()
+    check(launches["rows"] > 0 and launches["rows"] == len(batches),
+          "rows: %d kernel launches for %d device batches"
+          % (launches["rows"], len(batches)))
+    bad = int((got != host).sum())
+    check(bad == 0, "rows: the engine's device rows give %d samples "
+          "differing from its numpy rows" % bad)
+    big = max(batches, key=lambda b: len(b[1][0]))
+    for atlas, args in batches:
+        a_d, p_d = on(DEVICE, atlas, np.stack(
+            [np.asarray(a, np.int64) for a in args]))
+        bad, e = mismatches([(CR.rows_call(a_d, p_d),
+                              CR.rows_plain(a_d, p_d))])
+        check(bad == 0, "rows kernel != plain on a real batch of %d rows: "
+              "%d mismatches" % (p_d.shape[1], bad))
+        err = max(err, e)
+    atlas, args = big
+    a_d, p_d = on(DEVICE, atlas, np.stack([np.asarray(a, np.int64)
+                                           for a in args]))
+    N = p_d.shape[1]
+    ms = graph_ms(lambda: CR.rows_call(a_d, p_d))
+    plain_ms = cuda_ms(lambda: CR.rows_plain(a_d, p_d), reps=3, warmup=1)
+    nbytes, nops = CR.work(N, atlas.shape[0])
+    phase("rows", t0, "%d seeded row sets and %d real batches equal to the "
+          "plain version; kernel %.4f ms, plain %.3f ms at %d rows (atlas "
+          "%d values); host engine slice stereo %d x %d frames with device "
+          "rows == numpy rows == native, %.1f x realtime, %d rows launches"
+          % (nvar, len(batches), ms, plain_ms, N, atlas.shape[0], 6,
+             bufsize, frames / SR / dt, launches["rows"]))
+    rec = record("rows", "audiality2_tpu_torch/cuda/csrc/rows_kernel.cu",
+                 "audiality2_tpu/tpu/row_kernel.py:146", ms, plain_ms,
+                 nbytes, nops, err, rows=N, variants_checked=nvar,
+                 replaces_function="rows_jax",
+                 batch_rows=[len(b[1][0]) for b in batches])
+    return rec, launches
+
+
 PHASES = ("capture", "slice", "effects", "legacy", "pipeline", "serve",
-          "float", "cli")
+          "float", "cli", "packed", "device_mix", "rows")
 
 
 def main(argv=None):
@@ -1309,7 +1735,7 @@ def main(argv=None):
         paths["osc_rows"] = phase_slice()
     if "effects" in want:
         effects = phase_effects()
-        for k in ("fbdelay_dense", "filter", "fm"):
+        for k in ("fbdelay_dense", "filter", "fm", "unpack"):
             paths[k] = effects
         check(all(effects["filter_" + k] for k in FL.KINDS),
               "effects: a filter kind never launched: %s"
@@ -1326,6 +1752,13 @@ def main(argv=None):
         paths["filter_float"] = fpaths["effects stereo 10.0 s float"]
     if "cli" in want:
         extra["cli"] = phase_cli()
+    if "packed" in want:
+        kernels.append(phase_packed())
+    if "device_mix" in want:
+        extra["device_mix_launches"] = phase_device_mix()
+    if "rows" in want:
+        rec, paths["rows"] = phase_rows()
+        kernels.append(rec)
     # launches of the render phases that ran (all of them without
     # --phases); a kind without a count of its own (fm) takes its
     # kernel's

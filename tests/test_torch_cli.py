@@ -220,7 +220,9 @@ def test_cli_device_is_the_threads_own(tmp_path, capsys, monkeypatch):
         seen.append((threading.current_thread().name, device))
         return real(*a, device="cpu")
 
+    # a CUDA device takes the kernel's path (rows_cuda), another rows_torch
     monkeypatch.setattr(TRK, "rows_torch", spy)
+    monkeypatch.setattr(TRK, "rows_cuda", spy)
     from audiality2_tpu_torch.tpu.kernels import WaveAtlas
     atlas = WaveAtlas()
     atlas.data, atlas.version = np.arange(256, dtype=np.int32), 1

@@ -5,7 +5,8 @@ without JAX.
 package's JAX-free modules (compiler, engine state, objects, units,
 native bindings): a change on either side shows here.  In a fresh
 interpreter with ``jax`` and ``audiality2_tpu`` blocked on
-``sys.meta_path``, the port (its stage-tail kernel modules,
+``sys.meta_path``, the port (its stage-tail kernel modules, the packed
+format, the row kernel, the host engine's device mixer,
 ``profile_render`` and ``serve`` included) imports, renders the slice
 and effects songs briefly on the CPU (a pipelined, chained render with
 a sink and a served stream among them), and ``chip_smoke.py``'s
@@ -70,7 +71,8 @@ def test_port_imports_and_renders_without_jax():
 import numpy as np
 import audiality2_tpu_torch as a2
 from audiality2_tpu_torch.cuda import build, fbdelay, filter, fm, mixer
-from audiality2_tpu_torch.cuda import filter_float
+from audiality2_tpu_torch.cuda import filter_float, packed, rows
+from audiality2_tpu_torch.tpu import superblock
 from audiality2_tpu_torch.engine.device_render import DeviceRenderer
 from audiality2_tpu_torch.native import NativeRenderer
 from audiality2_tpu_torch.songs import EFFECTS_SONG, SLICE_SONG
@@ -110,8 +112,9 @@ print("ok")
 
 def test_port_batched_engine_and_midi_without_jax():
     """The default host engine (batched=True, rows on the host below
-    JAX_MIN_ROWS) renders, and the MIDI module parses a file, with
-    jax and audiality2_tpu blocked."""
+    JAX_MIN_ROWS) and its device mixer (device_mix=True, on the CPU)
+    render, and the MIDI module parses a file, with jax and
+    audiality2_tpu blocked."""
     out = _run_blocked(r"""
 import os, struct, tempfile
 import numpy as np
@@ -127,6 +130,18 @@ for use_jax in (True, False):
     i.starta(i.root_voice(), s, [])
     for _ in range(4):
         i.run(1024)
+    assert np.abs(np.concatenate(out)).max() > 0
+# the device mixer of the host engine (device_mix), on the CPU
+from audiality2_tpu_torch.tpu.row_kernel import row_device
+with row_device("cpu"):
+    i = a2.open_engine(44100, 4096, 2, device_mix=True, use_jax=False)
+    s = i.get(i.load_string(SLICE_SONG, "s"), "Song")
+    out = []
+    i.sink_callback(lambda bufs, n: out.append(np.array(bufs[0][:n])))
+    i.timestamp_reset()
+    i.starta(i.root_voice(), s, [])
+    i.run(4096)
+    assert i.state.core.device_mixer is not None
     assert np.abs(np.concatenate(out)).max() > 0
 track = (b"\x00\x90\x3c\x64" b"\x60\x80\x3c\x00" b"\x00\xff\x2f\x00")
 data = (b"MThd" + struct.pack(">IHHH", 6, 0, 1, 96) + b"MTrk"

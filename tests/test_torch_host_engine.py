@@ -19,11 +19,13 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 import audiality2_tpu as a2j
 from audiality2_tpu.tpu import row_kernel as JRK
 import audiality2_tpu_torch as a2t
 from audiality2_tpu_torch.engine.midi import MidiBridge
+from audiality2_tpu_torch.cuda import rows as CR
 from audiality2_tpu_torch.songs import SLICE_SONG
 from audiality2_tpu_torch.tpu import row_kernel as TRK
 
@@ -137,6 +139,71 @@ def test_row_batch_device_path_above_min_rows(monkeypatch):
     host = rb.evaluate(atlas, use_jax=False)
     assert calls == [16384]
     assert int((dev != host).sum()) == 0
+
+
+@pytest.mark.parametrize("seed", [34, 35])
+def test_rows_wrapper_plain_matches_numpy_and_jax(seed):
+    """cuda/rows.py's wrapper on CPU tensors runs the plain version: equal
+    to rows_numpy and to the JAX package's rows_jax on seeded rows (mono,
+    stereo, clamped and bare), its launch count untouched."""
+    rng = np.random.default_rng(seed)
+    n = 300 if seed == 34 else TRK.RowBatch.JAX_MIN_ROWS + 5
+    atlas, rows = _seeded_rows(rng, n)
+    # rows_jax keeps its device atlas by version alone
+    atlas.version = 10000 + seed
+    before = CR.rows_call.launches
+    got = CR.rows_call(torch.from_numpy(atlas.data),
+                       torch.from_numpy(np.stack([np.asarray(a, np.int64)
+                                                  for a in rows])))
+    assert CR.rows_call.launches == before
+    assert got.dtype == torch.int64 and tuple(got.shape) == (n, 2, 64)
+    want = TRK.rows_numpy(atlas.data, *rows)
+    assert int((got.numpy() != want).sum()) == 0
+    assert int((got.numpy() != JRK.rows_jax(atlas, *rows)).sum()) == 0
+
+
+def test_rows_wrapper_refuses_what_the_kernel_does_not_take():
+    """The wrapper launches only for CUDA tensors: tensors on another
+    device or on two devices, another type or shape, raise; rows_cuda
+    refuses a device that is not CUDA."""
+    atlas, rows = _seeded_rows(np.random.default_rng(36), 64)
+    a = torch.from_numpy(atlas.data)
+    p = torch.from_numpy(np.stack([np.asarray(x, np.int64) for x in rows]))
+    for args in ((a.to("meta"), p.to("meta")), (a, p.to("meta")),
+                 (a.to(torch.int64), p), (a, p.to(torch.int32)),
+                 (a, p[:11]), (a, p.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            CR.rows_call(*args)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        TRK.rows_cuda(atlas, *rows, device="cpu")
+
+
+def test_row_batch_on_a_cpu_device_uses_rows_torch(monkeypatch):
+    """On a CPU device (the thread's row_device) RowBatch.evaluate takes
+    rows_torch, never the kernel's path; on a CUDA device it takes the
+    kernel's (rows_cuda)."""
+    monkeypatch.setattr(TRK.RowBatch, "JAX_MIN_ROWS", 0)
+    atlas, rows = _seeded_rows(np.random.default_rng(37), 200)
+    rb = TRK.RowBatch()
+    for r in range(200):
+        rb.add_osc(*(int(x[r]) for x in rows[:5]))
+        if rows[5][r]:
+            rb.attach_panmix(r, int(rows[8][r]), int(rows[9][r]),
+                             int(rows[10][r]), int(rows[11][r]),
+                             bool(rows[6][r]), bool(rows[7][r]))
+    calls = []
+    real = TRK.rows_torch
+    monkeypatch.setattr(TRK, "rows_torch", lambda *a, **k: calls.append(
+        k["device"]) or real(*a, **k))
+    monkeypatch.setattr(TRK, "rows_cuda", lambda *a, **k: calls.append(
+        ("cuda", k["device"])) or real(*a, device="cpu"))
+    with TRK.row_device("cpu"):
+        dev = rb.evaluate(atlas, use_jax=True)
+    assert calls == ["cpu"]
+    host = rb.evaluate(atlas, use_jax=False)
+    assert int((dev != host).sum()) == 0
+    rb.evaluate(atlas, use_jax=True)
+    assert calls == ["cpu", ("cuda", "cuda")]
 
 
 def test_device_rows_without_a_card_name_use_jax_false(monkeypatch):

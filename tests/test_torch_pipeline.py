@@ -161,7 +161,7 @@ def test_signature_matches_device_mixer(name):
     """_repad / _signature / device_bytes["persistent"] equal the JAX
     mixer's, before a profile pass (pow2 padding, growing high-water
     marks) and after one (observe over every superblock, fine padding,
-    the structure union); the packed-format element aside."""
+    the structure union), the packed format's table sizes included."""
     src, program, channels, frames, count = MIXER_SCRIPTS[name]
     progs, tpa, jpa = record_superblocks(src, program, channels, frames,
                                          count)
@@ -177,8 +177,9 @@ def test_signature_matches_device_mixer(name):
             tm._repad(tp)
             jm._repad(jp)
             ts, js = tm._signature(tp), jm._signature(jp)
-            assert ts[:12] == js[:12], (profiled, k)
-            assert ts[12] is None
+            assert ts == js, (profiled, k)
+            assert (ts[12] is not None) == (profiled and tp.runmat
+                                            is not None)
             assert tm.device_bytes(copy.deepcopy(p))["persistent"] \
                 == jm.device_bytes(copy.deepcopy(p))["persistent"]
             for a, b in ((tp.runmat, jp.runmat), (tp.rampmat, jp.rampmat),
