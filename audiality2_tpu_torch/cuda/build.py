@@ -38,6 +38,9 @@ _handles = {}                # source name -> loaded ctypes library
 # thread, and the lock around the wrappers' shared counts
 _capturing = threading.local()
 _count_lock = threading.Lock()
+# one build at a time in a process (a renderer's warm-up thread and a
+# wrapper's first call may both start one; they share temporary names)
+_build_lock = threading.Lock()
 
 
 def lib_path(name):
@@ -62,7 +65,12 @@ def build(verbose=False):
     """Compiles every library of SOURCES that is not built yet, one nvcc
     process per source, all started together; returns {name: path}.
     Raises if nvcc is missing, fails, or runs past BUILD_TIMEOUT_S
-    (the other builds are stopped then)."""
+    (the other builds are stopped then).  Threads take turns."""
+    with _build_lock:
+        return _build(verbose)
+
+
+def _build(verbose):
     paths = {n: lib_path(n) for n in SOURCES}
     todo = [n for n in SOURCES if not os.path.exists(paths[n])]
     if not todo:

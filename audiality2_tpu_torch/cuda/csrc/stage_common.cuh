@@ -1,7 +1,8 @@
 // Shared by the stage-tail kernels (fbdelay_kernel.cu, filter_kernel.cu,
-// fm_kernel.cu): wrapping int32 arithmetic, a cooperative launch over
-// the whole card with a grid-wide barrier, and the emit of a tile of
-// slice steps of an instance-batched item into the slots.
+// fm_kernel.cu, filter_float_kernel.cu): wrapping int32 arithmetic, a
+// cooperative launch over the whole card with a grid-wide barrier, and
+// the emit of a tile of slice steps of an instance-batched item into the
+// slots (filter_kernel.cu, fm_kernel.cu).
 //
 // Signed overflow is undefined in CUDA C++, so wrapping adds, subtracts,
 // multiplies and left shifts run in uint32; right shifts stay on int32
@@ -51,10 +52,11 @@ __device__ __forceinline__ void grid_sync() {
     cooperative_groups::this_grid().sync();
 }
 
-// How many blocks of `kernel`, `threads` each, can be resident together
-// on the device (into *n); returns the CUDA error code (0 for none).
+// How many blocks of `kernel`, `threads` each with `smem` bytes of
+// dynamic shared memory, can be resident together on the device (into
+// *n); returns the CUDA error code (0 for none).
 template <typename K>
-int resident_blocks(K kernel, int threads, int* n) {
+int resident_blocks(K kernel, int threads, int* n, size_t smem = 0) {
     int dev = 0, sms = 0, per = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -62,26 +64,27 @@ int resident_blocks(K kernel, int threads, int* n) {
                                    dev);
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
-                                                          threads, 0);
+                                                          threads, smem);
     *n = sms * per;
     return (int)e;
 }
 
-// One cooperative launch of kernel(p) with `threads` per block and
-// `blocks` blocks (0: as many as can be resident together on the
-// device); returns the CUDA error code (0 for none).
+// One cooperative launch of kernel(p) with `threads` per block, `blocks`
+// blocks (0: as many as can be resident together on the device) and
+// `smem` bytes of dynamic shared memory each; returns the CUDA error
+// code (0 for none).
 template <typename P>
 int launch_grid(void (*kernel)(P), const P& p, int threads,
-                cudaStream_t stream, int blocks = 0) {
+                cudaStream_t stream, int blocks = 0, size_t smem = 0) {
     if (blocks == 0) {
-        const int e = resident_blocks(kernel, threads, &blocks);
+        const int e = resident_blocks(kernel, threads, &blocks, smem);
         if (e) return e;
     }
     if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
     P arg = p;
     void* args[] = {&arg};
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        (void*)kernel, dim3(blocks), dim3(threads), args, 0, stream);
+        (void*)kernel, dim3(blocks), dim3(threads), args, smem, stream);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 

@@ -25,9 +25,14 @@ whole tiles of TILE = THREADS * CHUNK samples:
 
 1. every thread folds the maps of its CHUNK consecutive samples left to
    right, and a tile's THREADS chunk maps reduce pairwise in a balanced
-   tree (level l+1 node i = level l nodes 2i then 2i+1);
-2. the tile maps scan serially per instance-channel from the entry
-   state: each tile's entry state, and the end state;
+   tree (level l+1 node i = level l nodes 2i then 2i+1): the tile's map
+   is its root;
+2. tile t's entry state is the chain's entry state with the roots of
+   tiles 0 .. t-1 applied in order, and the end state that of the last
+   tile with its own root applied (``serial_entries`` computes them in
+   one pass over the tiles; the kernel, one launch per item, lets each
+   tile compute its own, ``tile_entries``: the same operations on the
+   same values);
 3. each tile walks its tree down from its entry state (a node's left
    child takes its state, the right child the left child's map applied
    to it), then each thread walks its chunk: the outputs come from each
@@ -40,9 +45,10 @@ the JAX package's casts do.  The emit is the exact tier's (REPLACE as
 add-of-difference; all inputs gathered before any write; the second
 output channel reads its old values after the first one's adds).
 
-``filter_float_call`` runs the kernels of ``csrc/filter_float_kernel.cu``
-for CUDA tensors, ``filter_float_torch`` for CPU tensors; both update
-``slots`` and ``state`` in place.
+``filter_float_call`` runs the kernel of ``csrc/filter_float_kernel.cu``
+(one cooperative launch per item) for CUDA tensors,
+``filter_float_torch`` for CPU tensors; both update ``slots`` and
+``state`` in place.
 """
 
 import ctypes
@@ -103,11 +109,11 @@ def _at(m, idx):
     return tuple(v[idx] for v in m)
 
 
-def _scan(maps, s0, comb, apply):
-    """The fixed-order scan.  maps: tuple of float32 tensors [..., T,
-    THREADS, CHUNK] (one per map component); s0: tuple of [...] entry
-    states.  Returns (the pre-state of every sample, tuple of [..., T,
-    THREADS, CHUNK]; the end state, tuple of [...])."""
+def _tree(maps, comb):
+    """Every tile's chunk folds and balanced tree: the levels, leaves
+    first, each a tuple of [..., T, nodes]; the last level holds the
+    tiles' roots.  maps: tuple of float32 tensors [..., T, THREADS,
+    CHUNK] (one per map component)."""
     acc = _at(maps, (Ellipsis, 0))
     for j in range(1, CHUNK):
         acc = comb(acc, _at(maps, (Ellipsis, j)))
@@ -116,15 +122,51 @@ def _scan(maps, s0, comb, apply):
         lv = levels[-1]
         levels.append(comb(_at(lv, (Ellipsis, slice(0, None, 2))),
                            _at(lv, (Ellipsis, slice(1, None, 2)))))
-    root = _at(levels[-1], (Ellipsis, 0))          # [..., T]
-    T = root[0].shape[-1]
+    return levels
+
+
+def tile_roots(maps, comb):
+    """Each tile's map, tuple of [..., T]."""
+    return _at(_tree(maps, comb)[-1], (Ellipsis, 0))
+
+
+def serial_entries(root, s0, apply):
+    """Each tile's entry state (tuple of [..., T]) and the end state
+    (tuple of [...]), in one pass over the tiles' roots (tuple of [...,
+    T]) from the entry states s0 (tuple of [...])."""
     s = tuple(v.clone() for v in s0)
     entry = []
-    for t in range(T):
+    for t in range(root[0].shape[-1]):
         entry.append(s)
         s = apply(_at(root, (Ellipsis, t)), s)
-    st = tuple(torch.stack([e[i] for e in entry], -1)[..., None]
-               for i in range(len(s0)))             # [..., T, 1]
+    return tuple(torch.stack([e[i] for e in entry], -1)
+                 for i in range(len(s0))), s
+
+
+def tile_entries(root, s0, apply):
+    """serial_entries as the kernel computes them: tile t applies the
+    roots of tiles 0 .. t-1 to s0 itself, in order, and the last tile
+    its own root to its entry state for the end state."""
+    T = root[0].shape[-1]
+    entry = []
+    for t in range(T):
+        s = tuple(v.clone() for v in s0)
+        for u in range(t):
+            s = apply(_at(root, (Ellipsis, u)), s)
+        entry.append(s)
+    return tuple(torch.stack([e[i] for e in entry], -1)
+                 for i in range(len(s0))), \
+        apply(_at(root, (Ellipsis, T - 1)), entry[-1])
+
+
+def _scan(maps, s0, comb, apply):
+    """The fixed-order scan.  maps: tuple of float32 tensors [..., T,
+    THREADS, CHUNK] (one per map component); s0: tuple of [...] entry
+    states.  Returns (the pre-state of every sample, tuple of [..., T,
+    THREADS, CHUNK]; the end state, tuple of [...])."""
+    levels = _tree(maps, comb)
+    entry, s = serial_entries(_at(levels[-1], (Ellipsis, 0)), s0, apply)
+    st = tuple(v[..., None] for v in entry)         # [..., T, 1]
     for lv in reversed(levels[:-1]):
         left = _at(lv, (Ellipsis, slice(0, None, 2)))
         right = apply(left, st)
@@ -296,11 +338,14 @@ def seeded_item(rng, kind, ni, no, S=24, K=6, nslot=20, layout="shared",
 def _bind(lib):
     lib.a2_filter_float.restype = ctypes.c_int
     lib.a2_filter_float.argtypes = (
-        [ctypes.c_void_p] * 5                  # slots arr state scratch
-        #                                        obuf
+        [ctypes.c_void_p] * 4                  # slots arr state scratch
         + [ctypes.c_int] * 10                  # S K kind ni no add
         #                                        sch0 sch1 dch0 dch1
         + [ctypes.c_void_p])                   # stream
+    lib.a2_filter_float_plan.restype = ctypes.c_int
+    lib.a2_filter_float_plan.argtypes = (
+        [ctypes.c_int] * 6                     # S K kind ni no add
+        + [ctypes.c_void_p])                   # out int64 [5]
 
 
 def _load():
@@ -313,21 +358,29 @@ def chains(kind, ni):
     return 1 if kind == "lim" or ni != 2 else 2
 
 
-def scratch_floats(kind, ni, S, K):
-    """Floats of the kernels' scratch: each tile's map (6 floats, or 2
-    for the limiter) and entry state (2, or 1), per sequence."""
-    T = -(-S * FRAG // TILE)
-    per = 3 if kind == "lim" else 8
-    return K * chains(kind, ni) * T * per
+def plan(kind, sig, S, K, device):
+    """The kernel's launch plan for an item on CUDA `device`:
+    {"scratch": floats of scratch, "blocks", "tiles_per_block",
+    "shared": whether the tile buffers live in shared memory (else in
+    the scratch), "smem_bytes": a block's shared memory}."""
+    ni, no, add = sig[:3]
+    out = (ctypes.c_int64 * 5)()
+    with torch.cuda.device(device):
+        err = _load().a2_filter_float_plan(S, K, KINDS.index(kind), ni, no,
+                                           int(bool(add)), out)
+    build.launch_check(err, "filter_float plan")
+    p = dict(zip(("scratch", "blocks", "tiles_per_block", "shared",
+                  "smem_bytes"), (int(v) for v in out)))
+    p["shared"] = bool(p["shared"])
+    return p
 
 
 def filter_float_call(slots, kind, sig, arr, state):
     """One float-tier filter12 / dcblock / limiter item (see
-    filter_float_torch): the plain version for CPU tensors, the kernels
-    for CUDA tensors.  ``filter_float_call.launches`` counts the item
-    calls that launch the kernels (4 per call: the tile maps, the tile
-    scan, the walk and the emit), ``filter_float_call.kind_launches``
-    the same by kind.
+    filter_float_torch): the plain version for CPU tensors, the kernel
+    for CUDA tensors, one cooperative launch per item.
+    ``filter_float_call.launches`` counts those launches,
+    ``filter_float_call.kind_launches`` the same by kind.
     Updates slots and state in place; returns state."""
     if slots.device.type == "cpu":
         return filter_float_torch(slots, kind, sig, arr, state)
@@ -349,17 +402,15 @@ def filter_float_call(slots, kind, sig, arr, state):
                            dev)
     if S == 0 or K == 0:
         return state
-    scratch = torch.empty(scratch_floats(kind, ni, S, K), dtype=_F32,
-                          device=dev)
-    obuf = torch.empty((S, K, no, FRAG), dtype=torch.int32, device=dev)
+    scratch = torch.empty(plan(kind, sig, S, K, dev)["scratch"],
+                          dtype=_F32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.a2_filter_float(
             slots.data_ptr(), arr.data_ptr(), state.data_ptr(),
-            scratch.data_ptr(), obuf.data_ptr(), S, K, KINDS.index(kind),
-            ni, no, int(bool(add)), sch[0], sch[-1], dch[0], dch[-1],
-            stream)
+            scratch.data_ptr(), S, K, KINDS.index(kind), ni, no,
+            int(bool(add)), sch[0], sch[-1], dch[0], dch[-1], stream)
     build.launch_check(err, "filter_float")
     build.count_launch(filter_float_call, kind)
     return state
@@ -369,18 +420,24 @@ filter_float_call.launches = 0
 # the same launches by kind (a dict that callers may zero with launches)
 filter_float_call.kind_launches = dict.fromkeys(KINDS, 0)
 
-# float32 operations per active sample and sequence, counted by hand from
-# csrc/filter_float_kernel.cu: the sample's terms and map (twice: the
-# tile maps and the walk), its share of the chunk fold, the state update
-# and the output
-FLOPS_PER_SAMPLE = {"f12": 75, "dcb": 60, "lim": 30}
+# float32 operations of the function per active sample and sequence,
+# each counted once, whatever computes them (conversions and clips not
+# counted): filter12's terms (x/32, F, Q, cF, cQ, hbias: 9), map (6), one
+# map composition (20: the chunk fold and the tree take one per sample),
+# the state update (8) and output (17); dcblock's terms (6), map, its
+# composition and update (34) and output (9); the stereo limiter's peak
+# (9: mono 1), segment maximum (1), composition (3), update (2), gain (5)
+# and outputs (2 per channel)
+FLOPS_PER_SAMPLE = {"f12": 60, "dcb": 49, "lim": 24, "lim_mono": 14}
 
 
 def work(arr, kind, ni, no, add):
     """(bytes, float32 ops) of one float-tier item over the numpy table
     arr [S, K, 13]: the bytes as the exact tier's (``filter.work``: the
     table, the state in and out, each active sample's inputs, old values
-    and outputs, each once), the ops per active sample and sequence."""
+    and outputs, each once), the ops per active sample and sequence
+    (FLOPS_PER_SAMPLE)."""
     nbytes = exact_work(arr, kind, ni, no, add)[0]
-    return nbytes, active_samples(arr, 4) * chains(kind, ni) \
-        * FLOPS_PER_SAMPLE[kind]
+    per = FLOPS_PER_SAMPLE["lim_mono" if kind == "lim" and ni != 2
+                           else kind]
+    return nbytes, active_samples(arr, 4) * chains(kind, ni) * per

@@ -31,14 +31,21 @@ names the kernels to compare:
   on the effects song's first superblock's filter12 / dcblock /
   limiter / fm items, on the same seeded slots: slots and state must
   agree.  Also times the host's step-group computation of those items.
-- ``filter_float``: DIR's ``filter_float_kernel.cu`` with the C
-  interface of the current one (an output buffer of the same size)
+- ``filter_float``: DIR's ``filter_float_kernel.cu`` with the
+  four-launch C interface (tile maps, tile scan, walk, emit; commit
+  0ce2b73 and before)
 
-      a2_filter_float(slots, arr, state, scratch, obuf [no*S*K*64], S,
-                      K, kind, ni, no, add, sch0, sch1, dch0, dch1,
-                      stream)
+      a2_filter_float(slots, arr, state, scratch [old_float_scratch],
+                      obuf [S, K, no, 64], S, K, kind, ni, no, add,
+                      sch0, sch1, dch0, dch1, stream)
 
-  on the same limiter / filter12 / dcblock items in the float tier.
+  on the same limiter / filter12 / dcblock items in the float tier,
+  against the current one-launch kernel.  The current kernel, built
+  again with ``-DA2_FF_CLOCK``, also runs each item eagerly
+  (CLOCK_RUNS times): the mean ns of its phases (tiles built, grid
+  barrier, entry state, walk down, outputs computed, outputs added, a
+  late REPLACE's channel 1) in the first and the last block, which
+  holds the chain's last tile.
 
 Builds the earlier sources with nvcc (sm_90a) beside the current
 kernels, then times each item's two forms in the order earlier,
@@ -70,6 +77,10 @@ from .engine.device_render import DeviceRenderer, SUPERBLOCK_FRAMES
 from .songs import SONGS
 
 VP, CI = ctypes.c_void_p, ctypes.c_int
+# H100 SXM peaks for a kernel's bound (data sheet): HBM, float32 outside
+# the tensor cores
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
 # the earlier C interfaces: source name -> {function: argtypes}
 OLD_ARGTYPES = {
     "fbdelay_kernel": {"a2_fbd_dense": [VP] * 4 + [CI] * 3 + [VP],
@@ -78,6 +89,61 @@ OLD_ARGTYPES = {
     "fm_kernel": {"a2_fm": [VP] * 5 + [CI] * 5 + [VP]},
     "filter_float_kernel": {"a2_filter_float": [VP] * 5 + [CI] * 10 + [VP]},
 }
+
+
+CLOCK_RUNS = 30
+CLOCK_PHASES = ("build", "barrier", "entry", "walk_down", "outputs", "adds",
+                "late_emit")
+
+
+def start_clock_build(out_dir):
+    """Starts nvcc of the current float kernel with -DA2_FF_CLOCK;
+    returns (process, library path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "libfilter_float_clock.so")
+    cmd = [build._nvcc()] + build.NVCC_FLAGS + [
+        "-DA2_FF_CLOCK", "-o", lib,
+        os.path.join(build.CSRC_DIR, "filter_float_kernel.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_clock(proc, path):
+    out, _ = proc.communicate(timeout=build.BUILD_TIMEOUT_S)
+    if proc.returncode:
+        raise RuntimeError("nvcc failed on the clock build:\n%s" % out)
+    lib = ctypes.CDLL(path)
+    FF._bind(lib)
+    lib.a2_filter_float_clock.argtypes = [VP]
+    lib.a2_filter_float_clock.restype = CI
+    return lib
+
+
+def clock_item(lib, slots, kind, sig, arr, state):
+    """Mean ns of each phase of the clock build's launch on one item,
+    in its first and its last block, over CLOCK_RUNS eager launches."""
+    ni, no, add, sch, dch = sig
+    S, K = arr.shape[:2]
+    scratch = torch.empty(FF.plan(kind, sig, S, K, slots.device)["scratch"],
+                          dtype=torch.float32, device=slots.device)
+    stamps = (ctypes.c_uint64 * 16)()
+    runs = []
+    for _ in range(CLOCK_RUNS):
+        err = lib.a2_filter_float(
+            slots.data_ptr(), arr.data_ptr(), state.data_ptr(),
+            scratch.data_ptr(), S, K, FL.KINDS.index(kind), ni, no,
+            int(bool(add)), sch[0], sch[-1], dch[0], dch[-1], _stream())
+        build.launch_check(err, "filter_float clock")
+        torch.cuda.synchronize()
+        build.launch_check(lib.a2_filter_float_clock(stamps), "clock read")
+        runs.append(np.array(stamps[:], dtype=np.int64).reshape(2, 8))
+    r = np.array(runs, dtype=np.float64)           # [runs, block, stamp]
+    d = np.diff(r, axis=2).mean(0)
+    return {"first": dict(zip(CLOCK_PHASES, d[0].tolist())),
+            "last": dict(zip(CLOCK_PHASES, d[1].tolist())),
+            "last_start_ns": float((r[:, 1, 0] - r[:, 0, 0]).mean()),
+            "span_ns": float((r[:, :, 7].max(1) - r[:, :, 0].min(1))
+                             .mean())}
 
 
 def build_old(csrc, out_dir, names):
@@ -120,12 +186,20 @@ def old_filter(lib, slots, kind, sig, arr, state):
     build.launch_check(err, "earlier filter")
 
 
+def old_float_scratch(kind, ni, S, K):
+    """Floats of the four-launch kernel's scratch: each tile's map (6
+    floats, or 2 for the limiter) and entry state (2, or 1), per
+    sequence, tiles of FF.TILE samples."""
+    T = -(-S * FL.FRAG // FF.TILE)
+    return K * FF.chains(kind, ni) * T * (3 if kind == "lim" else 8)
+
+
 def old_filter_float(lib, slots, kind, sig, arr, state):
     ni, no, add, sch, dch = sig
     S, K = arr.shape[:2]
-    scratch = torch.empty(FF.scratch_floats(kind, ni, S, K),
+    scratch = torch.empty(old_float_scratch(kind, ni, S, K),
                           dtype=torch.float32, device=slots.device)
-    obuf = torch.empty((no, S, K, FL.FRAG), dtype=torch.int32,
+    obuf = torch.empty((S, K, no, FL.FRAG), dtype=torch.int32,
                        device=slots.device)
     err = lib.a2_filter_float(
         slots.data_ptr(), arr.data_ptr(), state.data_ptr(),
@@ -340,9 +414,10 @@ def item_ab(kind, S, K, older, new, slots0, reps, note, **extra):
     return rec
 
 
-def float_ab(old, gen, reps):
+def float_ab(old, gen, reps, clock):
     """Earlier and current float-tier kernels on the effects song's
-    limiter / filter12 / dcblock items; returns the item records."""
+    limiter / filter12 / dcblock items, and the current kernel's phases
+    from the clock build; returns the item records."""
     prog = first_program("effects", 2)
     dev = torch.device("cuda")
     slots0 = seeded_i32(gen, (prog.ninst * prog.F + 1, 2, FL.FRAG))
@@ -360,8 +435,21 @@ def float_ab(old, gen, reps):
         def older(s, st, kind=kind, sig=sig, arr=arr):
             old_filter_float(old["filter_float_kernel"], s, kind, sig, arr,
                              st)
-        recs.append(item_ab(kind, S, K, older, new, slots0, reps,
-                            "float tier"))
+        nbytes, nops = FF.work(fl["arr"], kind, *sig[:3])
+        pl = FF.plan(kind, sig, S, K, dev)
+        ck = clock_item(clock, slots0.clone(), kind, sig, arr,
+                        FL.init_state(kind, K, dev))
+        print("%-4s phases (ns; first block / last block): %s"
+              % (kind, ", ".join("%s %.0f / %.0f" % (p, ck["first"][p],
+                                                      ck["last"][p])
+                                 for p in CLOCK_PHASES)), flush=True)
+        recs.append(item_ab(
+            kind, S, K, older, new, slots0, reps,
+            "float tier (%d blocks x %d tiles)" % (pl["blocks"],
+                                                   pl["tiles_per_block"]),
+            plan=pl, bytes=nbytes, ops=nops,
+            bound_ms=max(nbytes / HBM_BYTES_S, nops / FP32_OPS_S) * 1e3,
+            clock_ns=ck))
     return recs
 
 
@@ -438,9 +526,14 @@ def main(argv=None):
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
+    clock = None
+    if "filter_float" in kernels:
+        clock = start_clock_build(os.path.join(a.old_csrc, "build"))
     old = build_old(a.old_csrc, os.path.join(a.old_csrc, "build"),
                     [k + "_kernel" for k in sorted(kernels)])
     build.build()
+    if clock is not None:
+        clock = load_clock(*clock)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     out = {"card": card}
@@ -451,7 +544,7 @@ def main(argv=None):
         out["items"], out["host_groups_ms"] = filter_fm_ab(old, gen, a.reps,
                                                            kernels)
     if "filter_float" in kernels:
-        out["float_items"] = float_ab(old, gen, a.reps)
+        out["float_items"] = float_ab(old, gen, a.reps, clock)
     print(json.dumps(out))
     bad = [r for k in ("fbdelay", "items", "float_items")
            for r in out.get(k, ()) if r["mismatches"]]

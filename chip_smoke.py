@@ -59,14 +59,18 @@ seconds:
    of two (slice, effects), each stream bit for bit against its solo
    native render, every kernel of the path launched; aggregate x
    realtime;
-11. float: the float stage tier's kernels (``filter_float_call``)
-   against their plain version on the card, bit for bit, on seeded
-   items (every kind x inputs x outputs x add in two slot layouts, both
-   outputs on one slot channel, a full-superblock limiter stereo and
-   stereo-in / mono-out, filter12 outputs driven past the int32 range)
-   and on the effects song's real limiter, filter12 and dcblock items,
-   each timed beside the exact tier's kernel on the same item and its
-   bound; then ``stage_mode="float"`` renders, pipelined: the float
+11. float: the float stage tier's kernel (``filter_float_call``, one
+   cooperative launch per item) against its plain version on the card,
+   bit for bit, on seeded items (every kind x inputs x outputs x add in
+   two slot layouts, both outputs on one slot channel, a
+   full-superblock limiter stereo and stereo-in / mono-out, filter12
+   outputs driven past the int32 range, a single chain of 88 tiles,
+   more tiles than the card holds at once (tile buffers in shared
+   memory with several tiles per block, and in device memory), ragged
+   last tiles) and on the effects song's real limiter, filter12 and
+   dcblock items, each timed beside the exact tier's kernel on the same
+   item and its bound, with the kernel nodes of a CUDA graph of one
+   call counted (one); then ``stage_mode="float"`` renders, pipelined: the float
    song, the damped song (filter12 in the float tier too) and the
    effects song each bit-equal to the same render through the plain
    versions on the CPU (``DeviceRenderer(device="cpu",
@@ -92,6 +96,7 @@ build (for quick checks; the full run takes no argument).
 import argparse
 import contextlib
 import copy
+import ctypes
 import io
 import itertools
 import json
@@ -1137,7 +1142,9 @@ def float_pair(kind, sig, slots, arr, state):
 
 def seeded_float(rng):
     """Every seeded float-tier variant, kernel against plain version on
-    the card; returns (variants, max abs err, notes)."""
+    the card; returns (variants, max abs err, notes).  The launch plans
+    of the variants must keep the tile buffers in shared memory with one
+    tile per block, and with several, and in device memory."""
     cases = [(kind, ni, no, add, layout, 40, 5, None, False)
              for kind, (ni, no), add, layout in itertools.product(
                  FL.KINDS, ((1, 1), (2, 2), (1, 2), (2, 1)), (True, False),
@@ -1153,23 +1160,95 @@ def seeded_float(rng):
     # filter12 outputs past the int32 range: the emit saturates
     cases += [("f12", ni, ni, False, "free", 40, 5, None, True)
               for ni in (1, 2)]
+    # the one-launch design's edges: a single chain of 88 tiles (the
+    # last tile applies 87 roots); more tiles than the card holds at
+    # once (K 512 and 1024 stereo: a block loops over its tiles, their
+    # buffers in shared memory or in device memory); ragged last tiles
+    # (10,688 samples: 5 tiles and 448 samples); REPLACE with both
+    # outputs on one slot channel at those sizes (two more barriers)
+    cases += [("f12", 1, 1, False, "split", 2797, 1, None, False),
+              ("dcb", 1, 2, True, "split", 2797, 1, None, False),
+              ("f12", 2, 2, False, "free", 40, 512, None, False),
+              ("dcb", 2, 1, True, "free", 40, 512, None, False),
+              ("lim", 2, 2, True, "free", 40, 512, None, False),
+              ("lim", 2, 1, False, "free", 40, 1024, None, False),
+              ("f12", 2, 2, False, "split", 167, 7, None, False),
+              ("dcb", 1, 2, False, "free", 167, 7, None, False),
+              ("lim", 1, 2, False, "split", 167, 7, None, False),
+              ("f12", 2, 2, False, "free", 40, 512, (0, 0), False),
+              ("f12", 1, 2, False, "free", 167, 7, (0, 0), False),
+              ("lim", 2, 2, False, "split", 2797, 1, (0, 0), False)]
+    # where the tiles outgrow one tile per resident block but not shared
+    # memory: the smallest such K on this card (a limiter, 2 tiles per
+    # instance)
+    for K in range(520, 1400, 40):
+        pl = FF.plan("lim", (2, 2, True), 40, K, torch.device(DEVICE))
+        if pl["shared"] and pl["tiles_per_block"] > 1:
+            cases.append(("lim", 2, 2, True, "free", 40, K, None, False))
+            break
     err = 0
     saturated = 0
+    modes = set()
     for kind, ni, no, add, layout, S, K, dch, hot in cases:
         slots, arr, state = FF.seeded_item(rng, kind, ni, no, S, K,
                                            2 * K + 8, layout, hot)
         sig = (ni, no, add, (0, 1) if ni == 2 else (1,),
                dch or ((1, 0) if no == 2 else (0,)))
         got, bad, e = float_pair(kind, sig, *on(DEVICE, slots, arr, state))
+        pl = FF.plan(kind, sig, S, K, torch.device(DEVICE))
         check(bad == 0, "filter_float %s %d->%d add %s %s S %d K %d dch %s "
-              "hot %s: %d mismatches" % (kind, ni, no, add, layout, S, K,
-                                         sig[4], hot, bad))
+              "hot %s (plan %s): %d mismatches"
+              % (kind, ni, no, add, layout, S, K, sig[4], hot,
+                 json.dumps(pl), bad))
+        modes.add("shared x%d" % pl["tiles_per_block"] if pl["shared"]
+                  else "device memory x%d" % pl["tiles_per_block"])
         if hot:
             n = int(((got == (1 << 31) - 1) | (got == -(1 << 31))).sum())
             check(n > 0, "the hot filter12 item saturated nothing")
             saturated += n
         err = max(err, e)
-    return len(cases), err, "%d saturated outputs" % saturated
+    check("shared x1" in modes and any(
+        m.startswith("shared x") and m != "shared x1" for m in modes)
+        and any(m.startswith("device memory") for m in modes),
+        "the seeded float variants miss a buffer placement: %s"
+        % sorted(modes))
+    return len(cases), err, "%d saturated outputs; tile buffers %s" % (
+        saturated, ", ".join(sorted(modes)))
+
+
+def graph_nodes(fn):
+    """The nodes of a CUDA graph that captures one call of fn(): (kernel
+    nodes, all nodes), read with libcuda's cuGraphGetNodes and
+    cuGraphNodeGetType (a kernel node's type is 0)."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with build.captured_launches(), torch.cuda.stream(side):
+        g.capture_begin(capture_error_mode="relaxed")
+        try:
+            fn()
+        finally:
+            g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    graph = g.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(t)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(t.value)
+    return kinds.count(0), len(kinds)
 
 
 def real_float(rng):
@@ -1203,9 +1282,15 @@ def real_float(rng):
         b = device_groups(FL, fl, sig)
         s, a, st = make()
         exact_ms = graph_ms(lambda: FL.filter_call(s, kind, sig, a, st, b))
+        nk, nn = graph_nodes(
+            lambda: FF.filter_float_call(s, kind, sig, a, st))
+        check(nk == nn == 1, "filter_float: one call on the real %s item "
+              "makes %d kernel nodes of %d graph nodes" % (kind, nk, nn))
         nbytes, nops = FF.work(fl["arr"], kind, *sig[:3])
         bms, by = bound(nbytes, nops, FP32_OPS_S)
         out[kind] = {"shape": "S%d K%d" % (S, K), "ms": ms,
+                     "launches_per_item": nk,
+                     "plan": FF.plan(kind, sig, S, K, torch.device(DEVICE)),
                      "exact_ms": exact_ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by, "bytes": nbytes,
                      "ops": nops, "max_abs_err": err,
@@ -1229,9 +1314,11 @@ def phase_float():
     notes = ["%d seeded variants equal to the plain version (%s)"
              % (nvar, snote)]
     notes.append("real items: " + "; ".join(
-        "%s %s %.4f ms (exact kernel %.4f ms, plain %.1f ms, bound %.4f "
-        "ms)" % (k, v["shape"], v["ms"], v["exact_ms"], v["plain_ms"],
-                 v["bound_ms"]) for k, v in real.items()))
+        "%s %s %.4f ms in %d launch (%d blocks x %d tiles; exact kernel "
+        "%.4f ms, plain %.1f ms, bound %.4f ms)"
+        % (k, v["shape"], v["ms"], v["launches_per_item"],
+           v["plan"]["blocks"], v["plan"]["tiles_per_block"], v["exact_ms"],
+           v["plain_ms"], v["bound_ms"]) for k, v in real.items()))
     paths = {}
     plain = {}
     # (song, channels, seconds, dB limit against native or None for bit
@@ -1303,7 +1390,8 @@ def phase_float():
         ops_s=FP32_OPS_S, variants_checked=nvar,
         replaces_function="_apply_filter_float",
         kinds={k: {x: v[x] for x in ("shape", "ms", "exact_ms", "plain_ms",
-                                     "bound_ms", "bound_by", "eligible")}
+                                     "bound_ms", "bound_by", "eligible",
+                                     "launches_per_item", "plan")}
                for k, v in real.items()},
         launches_by_path={p: l["filter_float"] for p, l in paths.items()})
     return rec, paths, runs

@@ -20,6 +20,8 @@ import copy
 import ctypes
 import os
 import re
+import threading
+import time
 import types
 
 import numpy as np
@@ -33,6 +35,7 @@ from audiality2_tpu.engine.device_render import DeviceRenderer as JaxRenderer
 from audiality2_tpu.tpu import superblock as JSB
 import audiality2_tpu_torch as a2t
 from audiality2_tpu_torch import serve
+from audiality2_tpu_torch.cuda import build
 from audiality2_tpu_torch.cuda import filter as FL
 from audiality2_tpu_torch.cuda import filter_float as FF
 from audiality2_tpu_torch.cuda.mixer import TorchMixer
@@ -417,15 +420,82 @@ def test_signature_float_matches_device_mixer(name):
 
 
 def test_binding_matches_c_interface():
-    """The ctypes signature of ``a2_filter_float`` has the C entry
-    point's parameters, pointer for pointer and int for int (a missing
-    int makes every call raise; a pointer bound as int is cut)."""
+    """The ctypes signatures of ``a2_filter_float`` (the launch) and
+    ``a2_filter_float_plan`` have the C entry points' parameters,
+    pointer for pointer and int for int (a missing int makes every call
+    raise; a pointer bound as int is cut)."""
     src = open(os.path.join(os.path.dirname(FF.__file__), "csrc",
                             "filter_float_kernel.cu")).read()
-    params = re.search(r'extern "C" int a2_filter_float\(([^)]*)\)',
-                       src).group(1).split(",")
-    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-    lib = types.SimpleNamespace(a2_filter_float=types.SimpleNamespace())
+    names = ("a2_filter_float", "a2_filter_float_plan")
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                   for n in names})
     FF._bind(lib)
-    assert lib.a2_filter_float.argtypes == want
-    assert lib.a2_filter_float.restype is ctypes.c_int
+    for name in names:
+        params = re.search(r'extern "C" int %s\(([^)]*)\)' % name,
+                           src).group(1).split(",")
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                for p in params]
+        assert getattr(lib, name).argtypes == want
+        assert getattr(lib, name).restype is ctypes.c_int
+
+
+def test_build_runs_one_at_a_time(monkeypatch):
+    """build.build() called from several threads at once (a renderer's
+    warm-up thread and a wrapper's first call, as the float kernel's
+    launch plan makes one): the nvcc rounds take turns, so two never
+    write the same temporary library."""
+    inside, most = [0], [0]
+
+    def fake(verbose):
+        inside[0] += 1
+        most[0] = max(most[0], inside[0])
+        time.sleep(0.05)
+        inside[0] -= 1
+        return {}
+    monkeypatch.setattr(build, "_build", fake)
+    threads = [threading.Thread(target=build.build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert most[0] == 1
+
+
+@pytest.mark.parametrize("T,S", [(1, 32), (2, 40), (88, 2797)],
+                         ids=["T1", "T2", "T88"])
+@pytest.mark.parametrize("ni", [1, 2], ids=["mono", "stereo"])
+@pytest.mark.parametrize("kind", FL.KINDS)
+def test_tile_entries_match_scan(kind, ni, T, S, monkeypatch):
+    """The kernel's order of the tile prefix (each tile applies the
+    roots of tiles 0 .. t-1 to the chain's entry state itself,
+    ``tile_entries``) is bit-equal to the plain version's serial pass
+    (``serial_entries``, inside ``_scan``): every tile's entry state and
+    the end state, on the maps and states of seeded items; T = 88 is the
+    effects song's master limiter (2,797 slices)."""
+    scans = []
+    plain = FF._scan
+
+    def spy(maps, s0, comb, apply):
+        out = plain(maps, s0, comb, apply)
+        scans.append((maps, s0, comb, apply, out[1]))
+        return out
+    monkeypatch.setattr(FF, "_scan", spy)
+    rng = np.random.default_rng(400 + 10 * T + ni)
+    slots, arr, state = FF.seeded_item(rng, kind, ni, ni, S=S, K=3,
+                                       layout="free")
+    _port(slots, kind, _sig(ni, ni, False), arr, state)
+    assert len(scans) == (2 if kind != "lim" and ni == 2 else 1)
+
+    def bits(v):
+        return v.contiguous().view(torch.int32)
+    for maps, s0, comb, apply, end in scans:
+        root = FF.tile_roots(maps, comb)
+        assert root[0].shape == (3, T)
+        want, want_end = FF.serial_entries(root, s0, apply)
+        got, got_end = FF.tile_entries(root, s0, apply)
+        for g, w in zip(got + got_end, want + want_end):
+            assert torch.equal(bits(g), bits(w))
+        for g, w in zip(got_end, end):
+            assert torch.equal(bits(g), bits(w))
+        # the entries move: each tile's state is not the chain's own
+        assert T == 1 or not torch.equal(got[0][:, -1], got[0][:, 0])
