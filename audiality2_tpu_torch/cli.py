@@ -15,6 +15,7 @@ render offline, write WAV, dump exports and VM assembly.
       --gpu                   render on the card (the default)
       --native / --no-native  render on the host instead: the C++
                               runtime or the Python host engine
+      --shards <n>            split one render over n cards
       -M <file.mid>, --live, -q hifi|normal|lofi
 
 The switches are those of the JAX package's a2play-tpu (reference
@@ -26,8 +27,9 @@ converts to 16-bit on the card).  Without a CUDA device a render exits
 with an error unless ``--native`` or ``--no-native`` asks for the
 host.  ``--gpu`` (``--tpu`` there) is accepted and changes nothing.
 ``-M`` and ``--live`` run the host engine, whose large oscillator row
-batches evaluate on the card.  ``--shards`` (one render across several
-cards) is not ported yet and exits with an error.
+batches evaluate on the card.  ``--shards N`` renders one song with its
+oscillator runs split over the cards cuda:0 .. cuda:N-1
+(``parallel.render_sharded``; an error when fewer are visible).
 """
 
 import argparse
@@ -211,6 +213,39 @@ def run_live(i, prog, args):
     return 0
 
 
+def run_sharded(i, prog, pargs, args, device):
+    """--shards N: one render with its oscillator runs split over N
+    shards (``parallel.render_sharded``): the cards cuda:0 .. cuda:N-1,
+    or N shards on the CPU for device "cpu"."""
+    from .parallel import render_sharded
+    if device == "cuda" and not torch.cuda.is_available():
+        print("a2play-gpu: --shards renders on the cards and needs a CUDA "
+              "device, and torch finds none", file=sys.stderr)
+        return 1
+    total = int(args.stoptime * args.rate)
+    devices = None if device == "cuda" else [device] * args.shards
+    t0 = time.perf_counter()
+    try:
+        audio = render_sharded(i, prog, total,
+                               args=[float(a) for a in pargs],
+                               n_devices=args.shards,
+                               channels=args.channels, devices=devices)
+    except ValueError as e:
+        print("a2play-gpu: %s" % e, file=sys.stderr)
+        return 1
+    dt = time.perf_counter() - t0
+    print(f"a2play-gpu: rendered {total} frames "
+          f"({total / args.rate:.2f} s) sharded over "
+          f"{args.shards} devices in {dt:.2f} s "
+          f"({total / args.rate / dt:.1f}x realtime)")
+    if args.output:
+        flat = (audio[0] if args.channels == 1 else
+                np.stack(list(audio[:args.channels]), axis=1).reshape(-1))
+        write_wav(args.output, flat, args.rate, args.channels)
+        print(f"a2play-gpu: wrote {args.output}")
+    return 0
+
+
 def main(argv=None, device="cuda"):
     """Runs the CLI on argv (sys.argv[1:] when None); returns the exit
     code.  device: where the card render mixes and where this thread's
@@ -253,8 +288,9 @@ def _main(argv, device):
                          "program as an EP-7 MIDI handler and feed it "
                          "the given Standard MIDI File")
     ap.add_argument("--shards", type=int, default=None,
-                    help="shard one render across N cards (not ported "
-                         "yet: ROADMAP.md section 1, sharded render)")
+                    help="shard one render's oscillator runs across N "
+                         "cards (parallel.render_sharded; the stage tail "
+                         "runs once, on the first)")
     where = ap.add_mutually_exclusive_group()
     where.add_argument("--gpu", action="store_true",
                        help="render on the card, the default (native "
@@ -287,10 +323,6 @@ def _main(argv, device):
         return 0
     if args.file is None:
         ap.error("a .a2s module file is required")
-    if args.shards:
-        print("a2play-gpu: --shards is not ported yet (ROADMAP.md "
-              "section 1, item 'Sharded render')", file=sys.stderr)
-        return 2
     from . import open_engine
     i = open_engine(args.rate, 4096, args.channels,
                     batched=not args.interleaved,
@@ -326,6 +358,9 @@ def _main(argv, device):
 
     if args.live:
         return run_live(i, prog, args)
+
+    if args.shards and not args.midi:
+        return run_sharded(i, prog, pargs, args, device)
 
     # the card unless the host is asked for or nothing is to be rendered
     # (-st 0); the MIDI driver runs on the host engine

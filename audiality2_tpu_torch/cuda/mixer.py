@@ -500,6 +500,23 @@ def blob_layout(sig):
     return layout, max(pos, 1)
 
 
+def blob_views(blob, layout, base=0):
+    """name -> the view of each table of `layout` in the flat int32
+    tensor `blob`, the layout starting at offset `base`."""
+    v = {}
+    for name, (pos, shape) in layout.items():
+        size = int(np.prod(shape, dtype=np.int64))
+        v[name] = blob[base + pos:base + pos + size].view(shape)
+    return v
+
+
+def rowless(sig):
+    """The signature of a body's stage half alone: `sig` without its row
+    tables (no class blocks, runs or ramp runs), so that its blob holds
+    the stash and the stage items only."""
+    return sig[:4] + ((), 0) + sig[6:8] + (0,) + sig[9:12] + (None,)
+
+
 class _StateSet:
     """The persistent state that one superblock body reads and advances
     in place: an fbdelay ring per fbdelay item and a state array per
@@ -544,13 +561,8 @@ class _Entry:
             total += n
         self.total = total
         self.blob = torch.zeros(total, dtype=torch.int32, device=dev)
-        self.views = []
-        for lay, (o, n) in zip(self.layouts, self.offs):
-            v = {}
-            for name, (pos, shape) in lay.items():
-                size = int(np.prod(shape, dtype=np.int64))
-                v[name] = self.blob[o + pos:o + pos + size].view(shape)
-            self.views.append(v)
+        self.views = [blob_views(self.blob, lay, o)
+                      for lay, (o, n) in zip(self.layouts, self.offs)]
         if chain:
             st = _StateSet(sigs[0], dev)
             self.states = [st] * len(sigs)
@@ -1316,43 +1328,67 @@ class TorchMixer:
         the blob's views (``blob_layout``), st its ``_StateSet``
         (advanced in place), master the static output [F, channels,
         64].  No host data and no host synchronisation: a CUDA graph
-        captures it."""
+        captures it.  The oscillator half (``_expand``) and the stage
+        half (``_tail``) also run apart in the sharded render
+        (``parallel.py``), which sums several shards' expansions into
+        one tail."""
+        nslot = sig[1] * sig[0] + 1
+        slots = torch.zeros((nslot, 2, FRAG), dtype=torch.int32,
+                            device=master.device)
+        self._expand(sig, v, slots)
+        self._tail(sig, v, st, slots, master)
+
+    def _expand(self, sig, v, slots):
+        """The oscillator half of a body: decodes the runs (the packed
+        format where the signature has it), expands them into rows,
+        renders the rows (class 0 in torch, the pass classes through
+        ``osc_call``) and adds their audio into ``slots`` int32
+        [ninst*F+1, 2, 64] in place.  Reads only the row tables of v
+        (``tbase``, ``rm`` / ``rmq``, ``rmp`` / ``rqr``)."""
         (F, ninst, minst, mch, rows_sig, rpad, ns, nsm, ramppad,
          readback, quality, items, rmq) = sig
-        dev = master.device
         mono = bool(quality & 32)
-        nslot = ninst * F + 1
-        slots = torch.zeros((nslot, 2, FRAG), dtype=torch.int32, device=dev)
+        nslot = slots.shape[0]
         Rtot = sum(NB * OK.RPB for _, NB in rows_sig)
-        if rpad and Rtot:
-            # the packed format decodes on the device (csrc/unpack_kernel.cu)
-            rm = PK.unpack_call("rmq", v["rmq"], [
-                v[("rmt", j)] for j in range(len(rmq[0]))]) if rmq \
-                else v["rm"]
-            rmp = None
-            if ramppad:
-                rmp = PK.unpack_call("rqr", v["rqr"], [
-                    v[("rqt", j)] for j in range(len(rmq[1]))]) \
-                    if rmq and rmq[1] else v["rmp"]
-                rmp = rmp.to(torch.int64)
-            classes, slot_r = self._row_params(
-                rm.to(torch.int64), rmp,
-                [v[("tbase", i)] for i in range(len(rows_sig))], rows_sig,
-                mono, nslot - 1)
-            outs = []
-            for cls, tb, par in classes:
-                if cls == 0:
-                    outs.append(self._class0_audio(par, mono))
-                else:
-                    res = OK.osc_call(cls, tb, par, self._atlas_dev,
-                                      quality=quality & 15, fused_pm=True,
-                                      mono=mono)
-                    outs.append(res.t())             # (P, C*64)
-            audio = torch.cat(outs, dim=0)
-            if mono:
-                slots[:, 0].index_add_(0, slot_r, audio)
+        if not (rpad and Rtot):
+            return
+        # the packed format decodes on the device (csrc/unpack_kernel.cu)
+        rm = PK.unpack_call("rmq", v["rmq"], [
+            v[("rmt", j)] for j in range(len(rmq[0]))]) if rmq \
+            else v["rm"]
+        rmp = None
+        if ramppad:
+            rmp = PK.unpack_call("rqr", v["rqr"], [
+                v[("rqt", j)] for j in range(len(rmq[1]))]) \
+                if rmq and rmq[1] else v["rmp"]
+            rmp = rmp.to(torch.int64)
+        classes, slot_r = self._row_params(
+            rm.to(torch.int64), rmp,
+            [v[("tbase", i)] for i in range(len(rows_sig))], rows_sig,
+            mono, nslot - 1)
+        outs = []
+        for cls, tb, par in classes:
+            if cls == 0:
+                outs.append(self._class0_audio(par, mono))
             else:
-                slots.view(nslot, 2 * FRAG).index_add_(0, slot_r, audio)
+                res = OK.osc_call(cls, tb, par, self._atlas_dev,
+                                  quality=quality & 15, fused_pm=True,
+                                  mono=mono)
+                outs.append(res.t())             # (P, C*64)
+        audio = torch.cat(outs, dim=0)
+        if mono:
+            slots[:, 0].index_add_(0, slot_r, audio)
+        else:
+            slots.view(nslot, 2 * FRAG).index_add_(0, slot_r, audio)
+
+    def _tail(self, sig, v, st, slots, master):
+        """The stage half of a body: the stash adds, the stage items in
+        execution order (filter / fm lanes following their unit serials
+        through ``fperm``), and the master slice into ``master``.  Reads
+        the stash and item tables of v, advances st in place."""
+        (F, ninst, minst, mch, rows_sig, rpad, ns, nsm, ramppad,
+         readback, quality, items, rmq) = sig
+        nslot = slots.shape[0]
         if ns:
             slots.view(nslot, 2 * FRAG).index_add_(
                 0, v["sas"].to(torch.int64), v["sa"].view(ns, 2 * FRAG))
@@ -1421,9 +1457,10 @@ class TorchMixer:
         rings = [p for p in out if p[0] == "ring"]
         return rings + [p for p in out if p[0] == "filt"]
 
-    def _prepare(self, prog):
+    def _prepare(self, prog, rows=True):
         """All host work of one superblock: pads the program, takes its
-        signature, brings its stream's persistent state into the
+        signature (``rowless`` when `rows` is false: the sharded render's
+        stage half, whose shards upload the rows), brings its stream's persistent state into the
         signature's format (a dense <-> legacy ring conversion; filter
         state grown to the padded K), advances the host-side state (ring
         positions, lane serials) and fills the numpy upload blob,
@@ -1437,6 +1474,8 @@ class TorchMixer:
         self._ensure_static()
         self._repad(prog)
         sig = self._signature(prog)
+        if not rows:
+            sig = rowless(sig)
         ns_ = getattr(prog, "ns", 0)
         layout, total = blob_layout(sig)
         blob = np.zeros(total, np.int32)
@@ -1446,7 +1485,7 @@ class TorchMixer:
             a = np.asarray(a)
             blob[pos:pos + a.size] = a.ravel().astype(np.int32, copy=False)
 
-        for i, (_, _, tb) in enumerate(prog.class_blocks):
+        for i, (_, _, tb) in enumerate(prog.class_blocks if sig[4] else ()):
             put(("tbase", i), tb)
         rmq = sig[12]
         try:

@@ -84,12 +84,23 @@ seconds:
    equal to clip(native >> 8), every kernel of the path launched, the
    CLI's x realtime.
 
+13. shards: ``parallel.render_sharded``: the effects song (stereo, 10 s,
+   superblocks of 1376x64 frames) at 1, 2, 4 and 8 shards on the card
+   (in process, the card repeated) and under NCCL at world size 1, and
+   the slice song at 4 shards, each bit-equal to native and to the solo
+   ``DeviceRenderer.render`` of the same superblocks; the oscillator,
+   filter, fm and fbdelay kernels launched inside the sharded renders;
+   per-shard expansion, sum and tail device times per superblock,
+   printed beside the card's name and power limit; then
+   ``graft_entry.entry()`` and ``dryrun_multichip(4)`` on the card, with
+   launches of the row kernel (the voice-batched helpers).
+
 Every kernel launch counter is set to 0 just before each render and
 read just after; a graph launch adds the launches captured in it.
 Then one JSON line with the kernels' numbers and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failure raises, and the exit
 code is not 0.  Needs one card; exits non-zero without one.
-``--phases a,b`` runs only the named phases of 3-12 after device,
+``--phases a,b`` runs only the named phases of 3-13 after device,
 build (for quick checks; the full run takes no argument).
 """
 
@@ -126,8 +137,10 @@ from audiality2_tpu_torch.cuda.mixer import (KERNEL_WRAPPERS,
 from audiality2_tpu_torch.cuda.superblock import RC_LEN, RR_PTGT, RR_PV
 from audiality2_tpu_torch.engine.device_render import (DeviceRenderer,
                                                        SUPERBLOCK_FRAMES)
-from audiality2_tpu_torch import cli, serve
+from audiality2_tpu_torch import cli, graft_entry, serve
 from audiality2_tpu_torch.native import NativeRenderer
+from audiality2_tpu_torch.parallel import DEFAULT_BUFSIZE, render_sharded
+from audiality2_tpu_torch.shard_scaling import summarize
 from audiality2_tpu_torch.songs import SONGS
 from audiality2_tpu_torch.tail_ab import graph_ms
 from audiality2_tpu_torch.tpu import row_kernel as TRK
@@ -1795,8 +1808,138 @@ def phase_rows():
     return rec, launches
 
 
+# ---------------------------------------------------------------
+# the sharded render and the voice-batched helpers
+# ---------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4, 8)
+
+
+def sharded_render(song, channels, frames, n, **kw):
+    """`song` through ``parallel.render_sharded``: n shards on the card
+    (in process, one device repeated), or under `group` when kw has it,
+    at the default superblock (1376x64 frames)."""
+    src, program = SONGS[song]
+    i = a2.open_engine(SR, 4096, channels, batched=False)
+    s = i.get(i.load_string(src, song), program)
+    devices = kw.pop("devices", None) or [DEVICE] * n
+    return render_sharded(i, s, frames, n_devices=n, channels=channels,
+                          devices=devices, **kw)
+
+
+def nccl_render(song, channels, frames):
+    """`song` through the process-group form under NCCL at world size 1
+    (a file:// store in a temporary directory)."""
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp()
+    try:
+        dist.init_process_group("nccl", init_method="file://"
+                                + os.path.join(tmp, "store"), rank=0,
+                                world_size=1)
+        try:
+            return sharded_render(song, channels, frames, None,
+                                  devices=[DEVICE],
+                                  group=dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_shards(card):
+    """The sharded render: the effects song (stereo, 10 s, superblocks of
+    1376x64 frames) at 1, 2, 4 and 8 shards on the card and under NCCL
+    at world size 1, and the slice song at 4 shards, each bit-equal to
+    native and to the solo DeviceRenderer.render of the same superblocks,
+    with launches of the oscillator and the exact tail kernels counted
+    over the sharded renders; per-shard expansion, sum and tail times;
+    then graft_entry.entry() and dryrun_multichip(4) on the card, with
+    the row kernel's launches.  Returns (the sharded renders' launches,
+    the helpers' launches, the times by shard count)."""
+    t0 = time.perf_counter()
+    frames = int(10.0 * SR)
+    sb = min(frames, DEFAULT_BUFSIZE)
+    want, solo = {}, {}
+    for song in ("effects", "slice"):
+        want[song] = native_render(song, 2, frames, sb=sb)
+        r = open_song(song, 2, DeviceRenderer, device=DEVICE)
+        r.wait_device()
+        solo[song] = r.render(frames, bufsize=sb)
+        check(not r.fell_back, "shards: the solo %s render bridged" % song)
+        r.close()
+        check(int((solo[song] != want[song]).sum()) == 0,
+              "shards: the solo %s render differs from native" % song)
+
+    def held(label, song, out):
+        check(out.shape == (2, frames) and out.dtype == np.int32,
+              "%s: output shape %s" % (label, out.shape))
+        check(np.abs(out).max() > 0, "%s: silent output" % label)
+        for ref, what in ((want[song], "native"), (solo[song], "solo")):
+            bad = int((out != ref).sum())
+            check(bad == 0, "%s: %d samples differ from %s"
+                  % (label, bad, what))
+
+    zero_launches()
+    times = {}
+    per_render = {}
+
+    def count(label):
+        # this render's launches: the counts since the last render's
+        torch.cuda.synchronize()
+        now = read_launches()
+        per_render[label] = {k: v - sum(p.get(k, 0)
+                                        for p in per_render.values())
+                             for k, v in now.items()}
+        return now
+
+    for n in SHARD_COUNTS:
+        tm = []
+        held("effects %d shards" % n, "effects",
+             sharded_render("effects", 2, frames, n, timings=tm))
+        times[n] = summarize(tm)
+        count("effects %d shards" % n)
+    held("effects nccl 1 rank", "effects", nccl_render("effects", 2, frames))
+    count("effects nccl 1 rank")
+    held("slice 4 shards", "slice", sharded_render("slice", 2, frames, 4))
+    launches = count("slice 4 shards")
+    for k in ("osc_rows", "filter", "fm"):
+        check(launches[k] > 0, "shards: the %s kernel never launched in a "
+              "sharded render" % k)
+    check(launches["fbdelay_dense"] + launches["fbdelay_legacy"] > 0,
+          "shards: no fbdelay kernel launched in a sharded render")
+    check(launches["unpack"] == 0 and launches["filter_float"] == 0,
+          "shards: the sharded tail left the exact unpacked path")
+
+    zero_launches()
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    check(out.shape == (2, 64) and int(out.abs().max()) > 0,
+          "entry: output %s" % (tuple(out.shape),))
+    graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    helpers = read_launches()
+    check(helpers["rows"] > 0, "entry / dryrun: the rows kernel never "
+          "launched")
+    print("%s | sharded effects stereo 10 s, per superblock (device ms, "
+          "mean of %d steady superblocks): %s" % (card, times[1][
+              "superblocks"], "; ".join(
+                  "%d shards: wall %.3f, expansion %.3f per shard (%.3f "
+                  "all), sum %.3f, tail %.3f"
+                  % (n, t["wall_ms"], float(np.mean(t["expand_ms"])),
+                     t["expand_total_ms"], t["sum_ms"], t["tail_ms"])
+                  for n, t in times.items())), flush=True)
+    phase("shards", t0, "effects stereo 10 s at %s shards and NCCL world "
+          "size 1, slice at 4 shards == native == solo; launches by "
+          "render %s; entry + dryrun_multichip(4): launches %s"
+          % ("/".join(map(str, SHARD_COUNTS)),
+             json.dumps({label: {k: v for k, v in l.items() if v}
+                         for label, l in per_render.items()}),
+             json.dumps({k: v for k, v in helpers.items() if v})))
+    return launches, helpers, dict(times=times, launches_by_render=per_render)
+
+
 PHASES = ("capture", "slice", "effects", "legacy", "pipeline", "serve",
-          "float", "cli", "packed", "device_mix", "rows")
+          "float", "cli", "packed", "device_mix", "rows", "shards")
 
 
 def main(argv=None):
@@ -1808,7 +1951,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    phase_device()
+    card = phase_device()
     phase_build()
     kernels = []
     if "kernel" in want:
@@ -1847,6 +1990,10 @@ def main(argv=None):
     if "rows" in want:
         rec, paths["rows"] = phase_rows()
         kernels.append(rec)
+    sharded = {}
+    if "shards" in want:
+        sharded, helpers, extra["shards"] = phase_shards(card)
+        sharded = dict(sharded, rows=helpers["rows"])
     # launches of the render phases that ran (all of them without
     # --phases); a kind without a count of its own (fm) takes its
     # kernel's
@@ -1857,6 +2004,10 @@ def main(argv=None):
             for kind, k in rec.get("kinds", {}).items():
                 k["launches"] = own.get(rec["name"] + "_" + kind,
                                         own[rec["name"]])
+        if rec["name"] in sharded:
+            # the sharded renders' launches (the row kernel's: the
+            # voice-batched helpers')
+            rec["launches_sharded"] = sharded[rec["name"]]
         if "pipeline_launches" in extra and "launches_by_path" not in rec:
             rec["launches_by_path"] = {
                 p: l[rec["name"]]

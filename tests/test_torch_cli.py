@@ -241,10 +241,21 @@ def test_cli_device_is_the_threads_own(tmp_path, capsys, monkeypatch):
     assert {d for t, d in seen[1:]} == {"cpu"} and len(seen) > 1
 
 
-def test_shards_names_roadmap(script, capsys):
-    rc, _, err = _run(cli.main, ["--shards", "2", script], capsys,
-                      device="cpu")
-    assert rc != 0 and "ROADMAP" in err
+def test_shards_names_roadmap(script, tmp_path, capsys):
+    """--shards 2 (two shards on the CPU here) writes the same WAV as the
+    solo render of the same frames."""
+    solo, sharded = tmp_path / "solo.wav", tmp_path / "sharded.wav"
+    common = ["-c", "2", "-st", "0.5"]
+    rc, _, _ = _run(cli.main, common + ["-o", str(solo), script], capsys,
+                    device="cpu")
+    assert rc == 0
+    rc, out, _ = _run(cli.main, ["--shards", "2"] + common
+                      + ["-o", str(sharded), script], capsys, device="cpu")
+    assert rc == 0 and "sharded over 2 devices" in out
+    data = sharded.read_bytes()
+    assert data == solo.read_bytes()
+    assert len(data) == 44 + 4 * int(0.5 * 44100)
+    assert np.abs(np.frombuffer(data[44:], "<i2")).max() > 0
 
 
 def test_version_and_missing_program(script, capsys):

@@ -187,3 +187,42 @@ def test_chip_smoke_fails_without_card_or_repo(where, tmp_path):
                        text=True, timeout=600, cwd=cwd, env=env)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_fleet_script_is_a_copy():
+    """graft_entry keeps its own copy of the dry run's fleet song."""
+    import __graft_entry__
+    from audiality2_tpu_torch import graft_entry
+    assert graft_entry._FLEET_SCRIPT == __graft_entry__._FLEET_SCRIPT
+
+
+def test_sharded_render_and_entry_without_jax():
+    """With jax and audiality2_tpu blocked: the sharded render (two
+    shards on the CPU, two superblocks of the slice song) equals native,
+    and the voice-batched entry step runs."""
+    out = _run_blocked(r"""
+import numpy as np, torch
+import audiality2_tpu_torch as a2
+from audiality2_tpu_torch import graft_entry
+from audiality2_tpu_torch.native import NativeRenderer
+from audiality2_tpu_torch.parallel import render_sharded
+from audiality2_tpu_torch.songs import SLICE_SONG
+def song():
+    i = a2.open_engine(44100, 4096, 2, batched=False)
+    return i, i.get(i.load_string(SLICE_SONG, "s"), "Song")
+i, s = song()
+got = render_sharded(i, s, 2 * 4096, n_devices=2, bufsize=4096,
+                     channels=2, devices=["cpu", "cpu"])
+i, s = song()
+nr = NativeRenderer(i, channels=2)
+nr.timestamp_reset()
+nr.start(0, s)
+want = np.concatenate([nr.run(4096) for _ in range(2)], axis=1)
+assert (got == want).all() and np.abs(got).max() > 0
+fn, args = graft_entry.entry(device="cpu")
+assert fn(*args).shape == (2, 64)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "audiality2_tpu")]
+assert not bad, bad
+print("ok")
+""")
+    assert out.strip().endswith("ok")

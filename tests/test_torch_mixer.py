@@ -10,17 +10,21 @@ and on an fbdelay item (the rest of the stage tail is in
 ``test_torch_stage_tail.py``).
 """
 
+import copy
+
 import numpy as np
 import pytest
+import torch
 
 from audiality2_tpu.tpu import superblock as JSB
 from audiality2_tpu.tpu.osc_kernel import PairAtlas as JPairAtlas
 import audiality2_tpu_torch as a2t
 from audiality2_tpu_torch.cuda import superblock as SB
-from audiality2_tpu_torch.cuda.mixer import TorchMixer
+from audiality2_tpu_torch.cuda.mixer import (TorchMixer, _StateSet,
+                                             blob_layout, blob_views, rowless)
 from audiality2_tpu_torch.cuda.osc_kernel import PairAtlas
 from audiality2_tpu_torch.native import NativeRenderer
-from audiality2_tpu_torch.songs import SLICE_SONG
+from audiality2_tpu_torch.songs import EFFECTS_SONG, SLICE_SONG
 
 PITCH_SONG = """
 Song()
@@ -164,6 +168,49 @@ def test_torch_mixer_i16_readback(programs):
     i16 = TorchMixer(_Core(tpa), device="cpu", readback="i16").run(prog)
     for e, q in zip(exact, i16):
         assert (q == (np.clip(e >> 8, -32768, 32767) << 8)).all()
+
+
+def _run_halves(mixer, sig, blob):
+    """The body's two halves on a blob: (master of _body, master of
+    _expand then _tail, the expanded slots), each from a fresh state
+    set."""
+    v = blob_views(torch.from_numpy(blob), blob_layout(sig)[0])
+    F, ninst, mch = sig[0], sig[1], sig[3]
+    body = torch.zeros((F, mch, 64), dtype=torch.int32)
+    mixer._body(sig, v, _StateSet(sig, "cpu"), body)
+    slots = torch.zeros((ninst * F + 1, 2, 64), dtype=torch.int32)
+    mixer._expand(sig, v, slots)
+    expanded = slots.clone()        # the tail adds into its slots
+    halves = torch.zeros_like(body)
+    mixer._tail(sig, v, _StateSet(sig, "cpu"), slots, halves)
+    return body, halves, expanded
+
+
+@pytest.mark.parametrize("name", ["effects", "slice"])
+def test_expand_and_tail_equal_body(name):
+    """_body is _expand then _tail; the stage half also runs from the
+    rowless blob (``_prepare(rows=False)``) on the expanded slots."""
+    src, frames, skip = {"effects": (EFFECTS_SONG, 4096, 8192),
+                         "slice": (SLICE_SONG, 8192, 4096)}[name]
+    prog, _, tpa, _ = record(src, 2, frames, skip)
+    prog2 = copy.deepcopy(prog)
+    mixer = TorchMixer(_Core(tpa), device="cpu")
+    sig, blob, _, _ = mixer._prepare(prog)
+    body, halves, slots = _run_halves(mixer, sig, blob)
+    assert torch.equal(halves, body)
+    assert int(body.abs().max()) > 0
+    if name == "effects":
+        assert any(t == "filt" and k[2] == "fm" for t, k, _ in sig[11])
+        assert any(t == "fbd" for t, _, _ in sig[11])
+    other = TorchMixer(_Core(tpa), device="cpu")
+    tsig, tblob, _, _ = other._prepare(prog2, rows=False)
+    assert tsig == rowless(sig) and not tsig[4] and not tsig[5]
+    assert len(tblob) < len(blob)
+    tail = torch.zeros_like(body)
+    other._tail(tsig, blob_views(torch.from_numpy(tblob),
+                                 blob_layout(tsig)[0]),
+                _StateSet(tsig, "cpu"), slots, tail)
+    assert torch.equal(tail, body)
 
 
 STAGE_KEYS = [
