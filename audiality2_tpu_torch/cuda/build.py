@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_TIMEOUT_S = 300
 # the sources, by the name of their module in this package
 SOURCES = ("osc_kernel", "fbdelay_kernel", "filter_kernel", "fm_kernel",
-           "filter_float_kernel", "unpack_kernel", "rows_kernel")
+           "filter_float_kernel", "unpack_kernel", "rows_kernel",
+           "expand_kernel")
 
 build_log = {}               # source name -> nvcc output of its build
 _handles = {}                # source name -> loaded ctypes library
@@ -126,10 +127,10 @@ def launch_check(err, what):
 
 
 def count_launch(fn, kind=None):
-    """Counts one kernel launch of wrapper `fn` (and of its `kind`, for
-    a wrapper with ``kind_launches``): into the graph capture in progress
-    on this thread (``captured_launches``), else into the wrapper's
-    counts."""
+    """Counts one kernel launch of wrapper `fn` (and of its `kind`, or of
+    each kind of a tuple, for a wrapper with ``kind_launches``): into the
+    graph capture in progress on this thread (``captured_launches``),
+    else into the wrapper's counts."""
     counts = getattr(_capturing, "counts", None)
     if counts is None:
         add_launches({(fn, kind): 1})
@@ -143,8 +144,9 @@ def add_launches(counts):
     with _count_lock:
         for (fn, kind), n in counts.items():
             fn.launches += n
-            if kind is not None:
-                fn.kind_launches[kind] += n
+            for k in (() if kind is None else (kind,)
+                      if isinstance(kind, str) else kind):
+                fn.kind_launches[k] += n
 
 
 @contextlib.contextmanager

@@ -9,7 +9,7 @@ seconds:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, whether nvcc is found;
-2. build: the native runtime (native/build.sh) and the five kernel
+2. build: the native runtime (native/build.sh) and the eight kernel
    libraries (one nvcc per source for sm_90a), from the sources in the
    checkout, all in parallel;
 3. kernel: the CUDA oscillator against its plain PyTorch version on
@@ -32,20 +32,34 @@ seconds:
    real filter / fm item's group count; times each kernel (device time
    through a CUDA graph of repeated launches) and each plain version
    at that shape;
-5. capture: the graph-capture probe: a seeded filter12 item and a
+5. expand: the run expansion's kernel (``expand_call``: the run order,
+   a block per 128 rows (decode, row fields, ramp replay, params), then
+   the class-0 rows' samples added into the slots) against its plain
+   version ``expand_plain`` on the card, params, slot indices and slots
+   bit for bit, on seeded tables (sorted, shuffled and all-dead runs;
+   packed and plain runs; ramps absent, plain and packed; mono and
+   stereo; noise, dc and dead rows; several pass classes) and on the
+   first superblocks
+   of the slice song (plain tables) and the effects song (packed); the
+   mixer's ``_expand`` on them equal to the earlier path (the
+   decoders, the torch glue, the oscillator); the kernel's ms (a CUDA
+   graph of repeated launches) beside its bound and the plain version's
+   ms; the kernel nodes of a CUDA graph of one ``_expand`` (at most 40)
+   and of one superblock body, each beside the earlier path's;
+6. capture: the graph-capture probe: a seeded filter12 item and a
    seeded fm item, whose kernels launch cooperatively
    (``cudaLaunchCooperativeKernel``), captured into a CUDA graph,
    replayed, and held against the same launch made eagerly;
-6. slice: the slice song (stereo, 44.1 kHz, 10 s, superblocks of
+7. slice: the slice song (stereo, 44.1 kHz, 10 s, superblocks of
    2752x64 frames) through ``DeviceRenderer(device=DEVICE).render``
    (profile pass, one CUDA graph, the pipeline) against the native
    renderer, bit for bit, with no native bridging and with oscillator
    launches; then 2 s mono the same way;
-7. effects: the effects song, stereo 10 s, the same way, with launches
+8. effects: the effects song, stereo 10 s, the same way, with launches
    of the oscillator, the dense fbdelay, the filter and the fm kernels;
-8. legacy: the late fbdelay song, mono, the same way, with launches of
+9. legacy: the late fbdelay song, mono, the same way, with launches of
    the legacy fbdelay kernel;
-9. pipeline: the same four renders with ``chain_dispatch=4`` (chains of
+10. pipeline: the same four renders with ``chain_dispatch=4`` (chains of
    4 superblocks per graph launch), the same checks, and the effects
    song in quarter superblocks so that whole chains run; then the
    synchronous render (``run`` per superblock) and the pipelined one
@@ -54,12 +68,12 @@ seconds:
    CUDA events) and host seconds by phase; then ``torch.profiler`` over
    a pipelined render of the effects and late fbdelay songs must show
    each kernel's name among the graph's device kernels;
-10. serve: ``serve.render_multiplexed`` of four streams (two slice, two
+11. serve: ``serve.render_multiplexed`` of four streams (two slice, two
    effects with different arguments, batch 2) and ``serve.render_many``
    of two (slice, effects), each stream bit for bit against its solo
    native render, every kernel of the path launched; aggregate x
    realtime;
-11. float: the float stage tier's kernel (``filter_float_call``, one
+12. float: the float stage tier's kernel (``filter_float_call``, one
    cooperative launch per item) against its plain version on the card,
    bit for bit, on seeded items (every kind x inputs x outputs x add in
    two slot layouts, both outputs on one slot channel, a
@@ -78,13 +92,13 @@ seconds:
    ``songs.RESO_SONG`` bit-equal to native (its resonant filter12 stays
    exact); then the effects song exact against float, 10 s, in
    alternating pairs, each again equal to its reference;
-12. cli: ``audiality2_tpu_torch.cli.main(["-c", "2", "-st", "10", "-o",
+13. cli: ``audiality2_tpu_torch.cli.main(["-c", "2", "-st", "10", "-o",
    wav, path])`` (the card by default) and the same with ``--gpu`` on
    the effects song written to a temporary .a2s file: the WAV's PCM
    equal to clip(native >> 8), every kernel of the path launched, the
    CLI's x realtime.
 
-13. shards: ``parallel.render_sharded``: the effects song (stereo, 10 s,
+14. shards: ``parallel.render_sharded``: the effects song (stereo, 10 s,
    superblocks of 1376x64 frames) at 1, 2, 4 and 8 shards on the card
    (in process, the card repeated) and under NCCL at world size 1, and
    the slice song at 4 shards, each bit-equal to native and to the solo
@@ -100,7 +114,7 @@ read just after; a graph launch adds the launches captured in it.
 Then one JSON line with the kernels' numbers and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failure raises, and the exit
 code is not 0.  Needs one card; exits non-zero without one.
-``--phases a,b`` runs only the named phases of 3-13 after device,
+``--phases a,b`` runs only the named phases of 3-14 after device,
 build (for quick checks; the full run takes no argument).
 """
 
@@ -124,6 +138,7 @@ import torch
 
 import audiality2_tpu_torch as a2
 from audiality2_tpu_torch.cuda import build
+from audiality2_tpu_torch.cuda import expand as EX
 from audiality2_tpu_torch.cuda import fbdelay as FB
 from audiality2_tpu_torch.cuda import filter as FL
 from audiality2_tpu_torch.cuda import filter_float as FF
@@ -133,7 +148,8 @@ from audiality2_tpu_torch.cuda import packed as PK
 from audiality2_tpu_torch.cuda import rows as CR
 from audiality2_tpu_torch.cuda.mixer import (KERNEL_WRAPPERS,
                                              _FLOAT_TIER_MINQ, TorchMixer,
-                                             blob_layout)
+                                             _StateSet, blob_layout,
+                                             blob_views)
 from audiality2_tpu_torch.cuda.superblock import RC_LEN, RR_PTGT, RR_PV
 from audiality2_tpu_torch.engine.device_render import (DeviceRenderer,
                                                        SUPERBLOCK_FRAMES)
@@ -246,7 +262,8 @@ WRAPPERS = dict(KERNEL_WRAPPERS, rows=CR.rows_call)
 # the wrappers that also count by kind
 KIND_WRAPPERS = (("filter", FL.filter_call, FL.KINDS),
                  ("filter_float", FF.filter_float_call, FL.KINDS),
-                 ("unpack", PK.unpack_call, tuple(PK.KINDS)))
+                 ("unpack", PK.unpack_call, tuple(PK.KINDS)),
+                 ("expand", EX.expand_call, EX.KINDS))
 
 
 def zero_launches():
@@ -276,8 +293,10 @@ def mixer_formats(mixer):
 def check_packed(label, formats, launches, need):
     """Each mixer of a profiled render decided its packed format once
     (formats: per mixer, the format element of its signatures, all
-    equal), and the decoder kernel launched exactly when a mixer's
-    format is on.  need: a mixer's format must be on.  (The format's
+    equal), the expansion kernel decoded packed runs ("rmq") exactly when
+    a mixer's format is on, and the standalone decoder never launched
+    (the expansion decodes the runs itself).  need: a mixer's format
+    must be on.  (The format's
     field caps decide it as the JAX package's do: at superblocks of 2752
     fragments a run longer than 255 fragments, a sustained note, breaks
     the 8-bit LEN field, and the song ships its tables unpacked.)
@@ -287,9 +306,11 @@ def check_packed(label, formats, launches, need):
               "with different formats: %s" % (label, f))
     packed = any(f[0] is not None for f in formats)
     check(packed or not need, "%s: the packed format is off" % label)
-    check((launches["unpack"] > 0) == packed, "%s: %d unpack launches "
-          "with the format %s" % (label, launches["unpack"],
-                                  "on" if packed else "off"))
+    check((launches["expand_rmq"] > 0) == packed, "%s: %d packed run "
+          "decodes with the format %s" % (label, launches["expand_rmq"],
+                                          "on" if packed else "off"))
+    check(launches["unpack"] == 0, "%s: %d standalone decoder launches on "
+          "the main path" % (label, launches["unpack"]))
     return packed
 
 
@@ -349,7 +370,7 @@ def phase_build():
     finally:
         nout, _ = native.communicate(timeout=build.BUILD_TIMEOUT_S)
     check(native.returncode == 0, "native build failed:\n" + nout)
-    for mod in (OK, FB, FL, FM, FF, PK, CR):
+    for mod in (OK, FB, FL, FM, FF, PK, CR, EX):
         mod._load()
     ptxas = ["%s: %s" % (n, " | ".join(
         ln.strip() for ln in build.build_log.get(n, "").splitlines()
@@ -763,6 +784,160 @@ def phase_tail():
 
 
 # ---------------------------------------------------------------
+# the run expansion
+# ---------------------------------------------------------------
+
+# the bound on the kernel nodes of one superblock's _expand in a graph
+EXPAND_NODES = 40
+# seeded expansions: (order, packed runs, ramps, mono, class blocks, runs)
+SEEDED_EXPAND = [
+    (order, packed, ramps, mono, rows, nruns)
+    for order in ("sorted", "shuffled", "dead")
+    for packed in (False, True)
+    for ramps in (None, "plain", "rqr")
+    for mono in (False, True)
+    for rows, nruns in ((((0, 2), (2, 3), (8, 1)), 160),)] + [
+    ("sorted", False, "plain", False,
+     ((0, 4), (1, 2), (2, 8), (4, 4), (8, 2), (18, 1)), 3000),
+    ("shuffled", True, "rqr", False, ((1, 3), (4, 5)), 2000),
+    ("sorted", True, "plain", True, ((0, 16),), 1200)]
+
+
+def expand_pair(args):
+    """expand_call (the kernel) against expand_plain on the card, each on
+    its own copy of the slots: (mismatches, max abs difference) over the
+    pass classes' params, the slot indices and the slots."""
+    slots = args[7]
+    res = []
+    for fn in (EX.expand_call, EX.expand_plain):
+        s = slots.clone()
+        classes, slot_r = fn(*args[:7], s)
+        res.append((classes, slot_r, s))
+    (kc, ks, kslots), (pc, ps, pslots) = res
+    check([(c, b0, p.shape) for c, _, p, b0 in kc]
+          == [(c, b0, p.shape) for c, _, p, b0 in pc],
+          "expand: the kernel's and the plain version's class blocks differ")
+    return mismatches([(ks, ps), (kslots, pslots)]
+                      + [(a[2], b[2]) for a, b in zip(kc, pc)])
+
+
+def glue_expand(m, sig, v, slots):
+    """The earlier path of _expand: the standalone decoders, the torch glue
+    (expand_plain on the card), the oscillator, one index_add_ per class."""
+    rows_sig, mono, dead, runs, ramps, tbases, ptabs, _ = \
+        m._expand_args(sig, v, slots)
+    if runs[0] == "rmq":
+        runs = ("plain", PK.unpack_call("rmq", runs[1], runs[2]))
+    if ramps is not None and ramps[0] == "rqr":
+        ramps = ("plain", PK.unpack_call("rqr", ramps[1], ramps[2]))
+    classes, slot_r = EX.expand_plain(rows_sig, mono, dead, runs, ramps,
+                                      tbases, ptabs, slots)
+    for cls, tb, par, b0 in classes:
+        res = OK.osc_call(cls, tb, par, m._atlas_dev, quality=sig[10] & 15,
+                          fused_pm=True, mono=mono)
+        EX.add_rows(slots, slot_r[b0:b0 + par.shape[1]], res.t(), mono)
+
+
+def real_expand(song):
+    """The first superblock of `song` (stereo, 2752x64 frames) on a
+    profiled card mixer: the kernel against expand_plain, the mixer's
+    _expand against the earlier path, the kernel and plain times, the
+    bound, and the kernel nodes of _expand and of the body in a graph
+    beside the earlier path's.  Returns a dict."""
+    m, prog, sig = real_format(song, SUPERBLOCK_FRAMES)
+    sig, blob, _, _ = m._prepare(copy.deepcopy(prog))
+    v = blob_views(torch.from_numpy(blob).to(DEVICE), blob_layout(sig)[0])
+    nslot = sig[1] * sig[0] + 1
+    zeros = torch.zeros((nslot, 2, OK.FRAG), dtype=torch.int32,
+                        device=DEVICE)
+    args = m._expand_args(sig, v, zeros)
+    bad, err = expand_pair(args)
+    check(bad == 0, "expand on the %s song's superblock: %d mismatches"
+          % (song, bad))
+    got, old = zeros.clone(), zeros.clone()
+    m._expand(sig, v, got)
+    glue_expand(m, sig, v, old)
+    check(int((got != old).sum()) == 0 and int(got.abs().max()) > 0,
+          "%s: _expand differs from the earlier path" % song)
+    # times and graphs add into a scratch copy of the slots
+    buf = zeros.clone()
+    ms = graph_ms(lambda: EX.expand_call(*args[:7], buf))
+    plain_ms = cuda_ms(lambda: EX.expand_plain(*args[:7], buf), reps=3,
+                       warmup=1)
+    rmq = sig[12]
+    nbytes, nops = EX.work(prog.runmat, prog.rampmat if sig[8] else None,
+                           sig[4], args[1], rmq and rmq[0],
+                           rmq and rmq[1])
+    bms, by = bound(nbytes, nops)
+    nodes = {}
+    for label, fn in (("expand", lambda: m._expand(sig, v, buf)),
+                      ("expand_before", lambda: glue_expand(m, sig, v, buf))):
+        nodes[label] = graph_nodes(fn)[0]
+    check(nodes["expand"] <= EXPAND_NODES, "%s: one _expand makes %d "
+          "kernel nodes (at most %d)" % (song, nodes["expand"],
+                                         EXPAND_NODES))
+    st = _StateSet(sig, DEVICE)
+    master = torch.zeros((sig[0], sig[3], OK.FRAG), dtype=torch.int32,
+                         device=DEVICE)
+    nodes["body"] = graph_nodes(lambda: m._body(sig, v, st, master))[0]
+    m._expand = lambda s_, v_, slots: glue_expand(m, s_, v_, slots)
+    try:
+        nodes["body_before"] = graph_nodes(
+            lambda: m._body(sig, v, st, master))[0]
+    finally:
+        del m._expand
+    return {"rows": sum(NB * OK.RPB for _, NB in sig[4]),
+            "runs": int(prog.runmat.shape[0]),
+            "ramp_runs": int(prog.rampmat.shape[0]) if sig[8] else 0,
+            "format": "rmq" if rmq else "plain",
+            "ramps": None if not sig[8] else "rqr" if rmq and rmq[1]
+            else "plain",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes, "ops": nops,
+            "max_abs_err": err, "nodes": nodes}
+
+
+def phase_expand():
+    """The expansion kernel against its plain version on seeded tables and
+    on the songs' real superblocks; times, bound and graph nodes.
+    Returns the kernel's JSON record (launches filled in by the effects
+    phase)."""
+    t0 = time.perf_counter()
+    nvar = err = 0
+    for i, (order, packed, ramps, mono, rows, nruns) in enumerate(
+            SEEDED_EXPAND):
+        args = EX.seeded_args(100 + i, order=order, packed=packed,
+                              ramps=ramps, rows_sig=rows, nruns=nruns,
+                              mono=mono, device=DEVICE)
+        bad, e = expand_pair(args)
+        check(bad == 0, "expand seeded (%s, packed %s, ramps %s, mono %s, "
+              "classes %s): %d mismatches" % (order, packed, ramps, mono,
+                                              rows, bad))
+        nvar, err = nvar + 1, max(err, e)
+    real = {song: real_expand(song) for song in ("slice", "effects")}
+    err = max([err] + [r["max_abs_err"] for r in real.values()])
+    phase("expand", t0, "%d seeded expansions equal to the plain version; "
+          "%s" % (nvar, "; ".join(
+              "%s superblock 0 (%d rows, %d runs, %d ramp runs, runs %s, "
+              "ramps %s) == plain, _expand == the earlier path; kernel "
+              "%.4f ms (bound %.4f ms, %s), plain %.3f ms; kernel nodes: "
+              "_expand %d (earlier path %d), body %d (earlier path %d)"
+              % (song, r["rows"], r["runs"], r["ramp_runs"], r["format"],
+                 r["ramps"], r["ms"], r["bound_ms"], r["bound_by"],
+                 r["plain_ms"], r["nodes"]["expand"],
+                 r["nodes"]["expand_before"], r["nodes"]["body"],
+                 r["nodes"]["body_before"]) for song, r in real.items())))
+    main = real["slice"]
+    return record("expand", "audiality2_tpu_torch/cuda/csrc/expand_kernel.cu",
+                  "audiality2_tpu/tpu/superblock.py:1428", main["ms"],
+                  main["plain_ms"], main["bytes"], main["ops"], err,
+                  variants_checked=nvar, shape="slice superblock 0",
+                  replaces_function="_expand_rows (up to its oscillator "
+                  "calls), with _rmq_unpack (:2932) and _rqr_unpack (:2908)",
+                  by_song=real)
+
+
+# ---------------------------------------------------------------
 # renders against native
 # ---------------------------------------------------------------
 
@@ -797,7 +972,7 @@ def render_check(song, channels, seconds, label, need,
     replays = r.mixer.replays
     formats = mixer_formats(r.mixer)
     r.close()
-    check_packed(label, [formats], launches, "unpack" in need)
+    check_packed(label, [formats], launches, song == "effects")
     check(out.shape == (channels, frames) and out.dtype == np.int32,
           "%s: output shape %s" % (label, out.shape))
     check(np.abs(out).max() > 0, "%s: silent output" % label)
@@ -866,12 +1041,13 @@ KERNEL_NAMES = {"osc_rows": "osc_rows_kernel",
                 "fbdelay_dense": "fbd_dense_kernel",
                 "fbdelay_legacy": "fbd_legacy_kernel",
                 "filter": "filter_kernel", "fm": "fm_kernel",
-                "unpack": "rmq_unpack_kernel"}
-# the kernels of each song's path
-PATH_KERNELS = {"slice": ["osc_rows"],
+                "expand": "expand_kernel"}
+# the kernels of each song's path (the effects song's profiled renders
+# also run the packed format: render_check)
+PATH_KERNELS = {"slice": ["osc_rows", "expand"],
                 "effects": ["osc_rows", "fbdelay_dense", "filter", "fm",
-                            "unpack"],
-                "late_fbdelay": ["fbdelay_legacy"]}
+                            "expand"],
+                "late_fbdelay": ["fbdelay_legacy", "expand"]}
 
 
 def capture_probe(rng):
@@ -1090,8 +1266,6 @@ def phase_serve():
         dt = time.perf_counter() - t1
         launches = read_launches()
         for k in PATH_KERNELS["effects"]:
-            if k == "unpack":
-                continue
             check(launches[k] > 0, "serve %s: the %s kernel never "
                   "launched" % (mode, k))
         mixers = {id(j.renderer.mixer): j.renderer.mixer for j in jobs}
@@ -1349,7 +1523,7 @@ def phase_float():
             plain[song] = plain_float_render(song, ch, int(secs * SR))
             plain_s = time.perf_counter() - t1
         launches, xrt, tm, dt, replays, db = render_check(
-            song, ch, secs, label, ("unpack",) if song == "effects" else (),
+            song, ch, secs, label, ("expand",),
             max_db=max_db, stage_mode="float",
             chain_dispatch=4, same_as=plain.get(song))
         for k in need:
@@ -1479,13 +1653,6 @@ def decode_pair(kind, pk, tabs):
     return got.cpu().numpy(), bad, err
 
 
-def own_tables(mat, cols):
-    """Value tables made from a table's own columns (with 0, as the
-    mixer's _rmq_finalize makes them)."""
-    return [np.unique(np.concatenate([mat[:, c], [0]])).astype(np.int32)
-            for c in cols]
-
-
 def host_ms(fn, reps):
     """The median host ms of reps calls of fn()."""
     ts = []
@@ -1525,8 +1692,8 @@ def rqr_through_mixer():
     (the format's invariant, which the native record does not keep: its
     ramp runs end fragment 0 inside a pitch ramp, so profiled renders
     ship the rampmat unpacked), on a card mixer (a captured graph) and
-    on a CPU mixer: the masters bit-equal, both decoders launched.
-    Returns the launches."""
+    on a CPU mixer: the masters bit-equal, the expansion kernel decoding
+    both packed tables.  Returns the launches."""
     r = open_song("slice", 2, DeviceRenderer, device=DEVICE)
     progs = [r.record_program(SUPERBLOCK_FRAMES // 16) for _ in range(2)]
     r.close()
@@ -1554,7 +1721,8 @@ def rqr_through_mixer():
                                                   outs["cpu"]))
     check(bad == 0, "rqr through the mixer: %d samples differ between the "
           "card and the CPU" % bad)
-    check(launches["unpack_rqr"] > 0 and launches["unpack_rmq"] > 0,
+    check(launches["expand_rqr"] > 0 and launches["expand_rmq"] > 0
+          and launches["unpack"] == 0,
           "rqr through the mixer: launches %s" % launches)
     return launches
 
@@ -1613,7 +1781,7 @@ def phase_packed():
         rmp = prog.rampmat
         ne = 0
         if rmp is not None and rmp.shape[0]:
-            rtabs = own_tables(rmp, PK._RQR_IDXCOLS)
+            rtabs = EX.own_tables(rmp, PK._RQR_IDXCOLS)
             rpk = PK._rqr_pack(rmp, rtabs)
             got, bad, e = decode_pair("rqr", rpk, rtabs)
             want = rmp.copy()
@@ -1652,8 +1820,8 @@ def phase_packed():
                         for k, v in kinds.items())))
     rqr_launches = rqr_through_mixer()
     notes.append("rampmat packed through the mixer (PTGT := PV): card == "
-                 "CPU, launches rmq %d rqr %d"
-                 % (rqr_launches["unpack_rmq"], rqr_launches["unpack_rqr"]))
+                 "CPU, expansion launches decoding rmq %d rqr %d"
+                 % (rqr_launches["expand_rmq"], rqr_launches["expand_rqr"]))
     phase("packed", t0, " | ".join(notes))
     # the main path's shape: the effects song's superblock
     main = "effects %d-frame superblock 0" % SUPERBLOCK_FRAMES
@@ -1667,7 +1835,7 @@ def phase_packed():
                                                        else 2908))
                          for x, v in kinds.items()},
                   by_shape=kinds, real=real,
-                  rqr_through_mixer={x: rqr_launches["unpack_" + x]
+                  rqr_through_mixer={x: rqr_launches["expand_" + x]
                                      for x in PK.KINDS})
 
 
@@ -1902,13 +2070,14 @@ def phase_shards(card):
     count("effects nccl 1 rank")
     held("slice 4 shards", "slice", sharded_render("slice", 2, frames, 4))
     launches = count("slice 4 shards")
-    for k in ("osc_rows", "filter", "fm"):
+    for k in ("osc_rows", "filter", "fm", "expand"):
         check(launches[k] > 0, "shards: the %s kernel never launched in a "
               "sharded render" % k)
     check(launches["fbdelay_dense"] + launches["fbdelay_legacy"] > 0,
           "shards: no fbdelay kernel launched in a sharded render")
-    check(launches["unpack"] == 0 and launches["filter_float"] == 0,
-          "shards: the sharded tail left the exact unpacked path")
+    check(launches["unpack"] == 0 and launches["filter_float"] == 0
+          and launches["expand_rmq"] == 0 and launches["expand"] > 0,
+          "shards: the sharded render left the exact unpacked path")
 
     zero_launches()
     fn, args = graft_entry.entry()
@@ -1938,8 +2107,8 @@ def phase_shards(card):
     return launches, helpers, dict(times=times, launches_by_render=per_render)
 
 
-PHASES = ("capture", "slice", "effects", "legacy", "pipeline", "serve",
-          "float", "cli", "packed", "device_mix", "rows", "shards")
+PHASES = ("expand", "capture", "slice", "effects", "legacy", "pipeline",
+          "serve", "float", "cli", "packed", "device_mix", "rows", "shards")
 
 
 def main(argv=None):
@@ -1959,6 +2128,8 @@ def main(argv=None):
     if "tail" in want:
         kernels += phase_tail()
     extra = {}
+    if "expand" in want:
+        kernels.append(phase_expand())
     if "capture" in want:
         extra["capture"] = phase_capture()
     paths = {}
@@ -1966,7 +2137,9 @@ def main(argv=None):
         paths["osc_rows"] = phase_slice()
     if "effects" in want:
         effects = phase_effects()
-        for k in ("fbdelay_dense", "filter", "fm", "unpack"):
+        # the standalone decoder is off the main path: its launches there
+        # (0) are counted on the effects song, as are the expansion's
+        for k in ("fbdelay_dense", "filter", "fm", "unpack", "expand"):
             paths[k] = effects
         check(all(effects["filter_" + k] for k in FL.KINDS),
               "effects: a filter kind never launched: %s"

@@ -71,7 +71,7 @@ def test_port_imports_and_renders_without_jax():
 import numpy as np
 import audiality2_tpu_torch as a2
 from audiality2_tpu_torch.cuda import build, fbdelay, filter, fm, mixer
-from audiality2_tpu_torch.cuda import filter_float, packed, rows
+from audiality2_tpu_torch.cuda import expand, filter_float, packed, rows
 from audiality2_tpu_torch.tpu import superblock
 from audiality2_tpu_torch.engine.device_render import DeviceRenderer
 from audiality2_tpu_torch.native import NativeRenderer
