@@ -61,6 +61,7 @@ class PairAtlas:
         self._rows = []          # list of (128,) int32 rows
         self._index = {}         # (wave_key, mip) -> (tbase, npass, off)
         self.data = None         # numpy (T, 128) after finalize
+        self.np_pairs = None     # numpy flat pairs (for the twin)
         self.version = 0
         # a fleet-shared atlas (serve.render_multiplexed) is mutated
         # from record threads when a stream's superblock meets an unseen
@@ -97,6 +98,7 @@ class PairAtlas:
                 arr = np.stack(self._rows)
             else:
                 arr = np.zeros((1, 128), dtype=np.int32)
+            self.np_pairs = arr.reshape(-1)
             self.data = arr
             self.version += 1
             return self.data

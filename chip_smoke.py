@@ -107,14 +107,22 @@ seconds:
    per-shard expansion, sum and tail device times per superblock,
    printed beside the card's name and power limit; then
    ``graft_entry.entry()`` and ``dryrun_multichip(4)`` on the card, with
-   launches of the row kernel (the voice-batched helpers).
+   launches of the row kernel (the voice-batched helpers);
+15. osc_batch: ``tpu.osc_kernel.OscBatch`` / ``evaluate_osc_batch``, the
+   oscillator's general entry point: the JAX package's kernel-ceiling
+   batch (16,384 rows on saw mip 0, seed 0) at qualities 0 and 2 and a
+   mixture of five waves at mips 0/1/3/5 at 0/1/2, each call on the
+   card with 5 oscillator launches and equal to the plain version on
+   the CPU and to the numpy twin; the kernel's device ms (a CUDA graph),
+   the host add and build ms and the copy-back ms, printed beside the
+   card's name and power limit.
 
 Every kernel launch counter is set to 0 just before each render and
 read just after; a graph launch adds the launches captured in it.
 Then one JSON line with the kernels' numbers and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failure raises, and the exit
 code is not 0.  Needs one card; exits non-zero without one.
-``--phases a,b`` runs only the named phases of 3-14 after device,
+``--phases a,b`` runs only the named phases of 3-15 after device,
 build (for quick checks; the full run takes no argument).
 """
 
@@ -159,6 +167,7 @@ from audiality2_tpu_torch.parallel import DEFAULT_BUFSIZE, render_sharded
 from audiality2_tpu_torch.shard_scaling import summarize
 from audiality2_tpu_torch.songs import SONGS
 from audiality2_tpu_torch.tail_ab import graph_ms
+from audiality2_tpu_torch.tpu import osc_kernel as TOK
 from audiality2_tpu_torch.tpu import row_kernel as TRK
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1977,6 +1986,175 @@ def phase_rows():
 
 
 # ---------------------------------------------------------------
+# the oscillator's general entry point (OscBatch)
+# ---------------------------------------------------------------
+
+# the JAX package's kernel-ceiling batch (bench.py bench_osc_kernel)
+OSC_BATCH_ROWS = 16384
+OSC_WAVES = ("saw", "triangle", "sine", "square", "pulse10")
+
+
+def osc_batches(pa, waves):
+    """(label, batch, rows as (tbase, npass, pos_off, ph0, dph, amp0,
+    damp)): the kernel-ceiling batch (OSC_BATCH_ROWS rows on saw mip 0,
+    seed 0, drawn as bench_osc_kernel draws them) and a mixture of 256
+    rows on each of the five waves at mips 0/1/3/5 (seed 1, shuffled),
+    all inside the table contract (ph0 < size << 24, dph < 2 << 24)."""
+    rng = np.random.default_rng(0)
+    tb, npz, off = pa.lookup("saw", 0)
+    size = waves["saw"].size[0]
+    bench = [(tb, npz, off, int(rng.integers(0, size << 24)),
+              int(rng.integers(1 << 20, 2 << 24)),
+              int(rng.integers(0, 1 << 26)), 0)
+             for _ in range(OSC_BATCH_ROWS)]
+    rng = np.random.default_rng(1)
+    mix = []
+    for name in OSC_WAVES:
+        for mm in (0, 1, 3, 5):
+            tb, npz, off = pa.lookup(name, mm)
+            n = 256
+            mix += zip([tb] * n, [npz] * n, [off] * n,
+                       rng.integers(0, waves[name].size[mm] << 24, n)
+                       .tolist(),
+                       rng.integers(1 << 18, 2 << 24, n).tolist(),
+                       rng.integers(-(1 << 27), 1 << 27, n).tolist(),
+                       rng.integers(-(1 << 20), 1 << 20, n).tolist())
+    mix = [mix[k] for k in rng.permutation(len(mix))]
+    out = []
+    for label, rows in (("bench", bench), ("mixture", mix)):
+        b = TOK.OscBatch(pa)
+        for r in rows:
+            b.add(*r)
+        out.append((label, b, rows))
+    return out
+
+
+def osc_twin(pa, b, quality):
+    """osc_rows_numpy over the columns an OscBatch stores."""
+    return TOK.osc_rows_numpy(
+        pa.np_pairs, *np.array(b.rows, np.int32).reshape(-1, 8).T,
+        quality=quality)
+
+
+def phase_osc_batch(card):
+    """OscBatch / evaluate_osc_batch on the card: the kernel-ceiling
+    batch at qualities 0 and 2 and the five-wave mixture at 0/1/2,
+    each through ``evaluate_osc_batch(batch)`` (the atlas uploaded to
+    the card), 5 oscillator launches per call, equal to the plain
+    version on the CPU and to the numpy twin; then, on the
+    kernel-ceiling batch, the kernel's device ms (its 5 launches in a
+    CUDA graph), the host add and build ms, the copy-back ms and the
+    whole call's ms.  Returns (the path's launches, the numbers)."""
+    t0 = time.perf_counter()
+    i = a2.open_engine(SR, 1024, 1, batched=False)
+    waves = {name: i.get_wave(i.get(0, name)) for name in OSC_WAVES}
+    pa = TOK.PairAtlas()
+    for name, w in waves.items():
+        pa.add_wave(name, w)
+    pa.finalize()
+    cases = [(label, b, rows, q)
+             for label, b, rows in osc_batches(pa, waves)
+             for q in ((0, 2) if label == "bench" else (0, 1, 2))]
+    zero_launches()
+    got = {}
+    for label, b, _, q in cases:
+        before = OK.osc_call.launches
+        got[label, q] = TOK.evaluate_osc_batch(b, quality=q)
+        torch.cuda.synchronize()
+        check(OK.osc_call.launches - before == len(TOK.PASS_CLASSES),
+              "osc_batch %s q%d: %d oscillator launches, not %d"
+              % (label, q, OK.osc_call.launches - before,
+                 len(TOK.PASS_CLASSES)))
+    launches = read_launches()
+    check(launches["osc_rows"] == len(TOK.PASS_CLASSES) * len(cases),
+          "osc_batch: %d oscillator launches for %d calls"
+          % (launches["osc_rows"], len(cases)))
+    cpu_atlas = torch.from_numpy(pa.data)
+    for label, b, _, q in cases:
+        out = got[label, q]
+        check(out.shape == (b.n, TOK.FRAG) and out.dtype == np.int32
+              and np.abs(out).max() > 0, "osc_batch %s q%d: output %s %s"
+              % (label, q, out.shape, out.dtype))
+        plain = TOK.evaluate_osc_batch(b, cpu_atlas, quality=q)
+        bad = int((out != plain).sum())
+        check(bad == 0, "osc_batch %s q%d: %d samples differ from the "
+              "plain version" % (label, q, bad))
+        bad = int((out != osc_twin(pa, b, q)).sum())
+        check(bad == 0, "osc_batch %s q%d: %d samples differ from the "
+              "numpy twin" % (label, q, bad))
+
+    # the parts of one call on the kernel-ceiling batch
+    _, bench, rows, _ = cases[0]
+    times = {}
+    reps = 5
+    adds, builds = [], []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        b = TOK.OscBatch(pa)
+        for r in rows:
+            b.add(*r)
+        t2 = time.perf_counter()
+        calls = b.build()
+        adds.append((t2 - t1) * 1e3)
+        builds.append((time.perf_counter() - t2) * 1e3)
+    atlas = torch.as_tensor(pa.data, device=DEVICE)
+    dev_calls = [(cls, torch.as_tensor(t, device=DEVICE),
+                  torch.as_tensor(p, device=DEVICE))
+                 for cls, t, p, _ in calls]
+    # the work the function needs: the pair rows of the tables its live
+    # rows read, each live row's params and its FRAG output words, and
+    # its frames' operations without the panmix (channel 0 of mode 0
+    # rows is the amped sample; the dead blocks' work is not needed)
+    tables = {(r[0], r[1]) for r in bench.rows}
+    nbytes = (sum(npass for _, npass in tables) * OK.RPB
+              + bench.n * (OK.NPARAM + OK.FRAG)) * 4
+    copies = []
+    dev_out = torch.zeros((bench.n, OK.FRAG), dtype=torch.int32,
+                          device=DEVICE)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dev_out.cpu().numpy()
+        copies.append((time.perf_counter() - t1) * 1e3)
+    for q in (0, 2):
+        kernel_ms = graph_ms(lambda: [OK.osc_call(cls, t, p, atlas, q)
+                                      for cls, t, p in dev_calls])
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            TOK.evaluate_osc_batch(bench, quality=q)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        nops = bench.n * OK.FRAG * OK.ops_per_frame(q, False, True)
+        bms, by = bound(nbytes, nops)
+        times["q%d" % q] = dict(
+            kernel_ms=kernel_ms, bound_ms=bms, bound_by=by,
+            msamples_s=bench.n * OK.FRAG / kernel_ms / 1e3,
+            call_ms=float(np.median(walls)))
+    times.update(rows=bench.n, blocks=[p.shape[1] // OK.RPB
+                                       for _, _, p in dev_calls],
+                 add_ms=float(np.median(adds)),
+                 build_ms=float(np.median(builds)),
+                 copy_ms=float(np.median(copies)))
+    print("%s | osc_batch, %d rows on saw mip 0 (blocks per pass class "
+          "%s): kernel %s; host add %.3f ms, build %.3f ms, copy back "
+          "%.3f ms (median of %d)" % (
+              card, bench.n, times["blocks"], "; ".join(
+                  "%s %.4f ms for 5 launches (bound %.4f ms, %s), %.1f M "
+                  "voice-samples/s, whole call %.3f ms"
+                  % (k, t["kernel_ms"], t["bound_ms"], t["bound_by"],
+                     t["msamples_s"], t["call_ms"])
+                  for k, t in times.items() if k in ("q0", "q2")),
+              times["add_ms"], times["build_ms"], times["copy_ms"], reps),
+          flush=True)
+    phase("osc_batch", t0, "%s equal to the plain version and the numpy "
+          "twin; %d oscillator launches (5 per call)"
+          % (", ".join("%s q%d (%d rows)" % (label, q, b.n)
+                       for label, b, _, q in cases), launches["osc_rows"]))
+    return launches, times
+
+
+# ---------------------------------------------------------------
 # the sharded render and the voice-batched helpers
 # ---------------------------------------------------------------
 
@@ -2108,7 +2286,8 @@ def phase_shards(card):
 
 
 PHASES = ("expand", "capture", "slice", "effects", "legacy", "pipeline",
-          "serve", "float", "cli", "packed", "device_mix", "rows", "shards")
+          "serve", "float", "cli", "packed", "device_mix", "rows",
+          "osc_batch", "shards")
 
 
 def main(argv=None):
@@ -2163,6 +2342,9 @@ def main(argv=None):
     if "rows" in want:
         rec, paths["rows"] = phase_rows()
         kernels.append(rec)
+    osc_batch = None
+    if "osc_batch" in want:
+        osc_batch, extra["osc_batch"] = phase_osc_batch(card)
     sharded = {}
     if "shards" in want:
         sharded, helpers, extra["shards"] = phase_shards(card)
@@ -2185,6 +2367,9 @@ def main(argv=None):
             rec["launches_by_path"] = {
                 p: l[rec["name"]]
                 for p, l in extra["pipeline_launches"].items()}
+        if osc_batch is not None and rec["name"] == "osc_rows":
+            rec.setdefault("launches_by_path", {})["osc_batch"] = \
+                osc_batch["osc_rows"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
