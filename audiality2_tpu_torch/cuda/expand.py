@@ -17,8 +17,8 @@ Counterpart of the JAX package's ``_expand_rows``
 before, arithmetic unchanged) for CPU tensors, and the launches of
 ``csrc/expand_kernel.cu`` for CUDA tensors (the runs' order, the rows,
 the class-0 samples where there are class-0 rows), or raises.  The pass
-classes' rows then go through ``osc_kernel.osc_call`` and one
-``index_add_`` per class into the slots (``TorchMixer._expand``).
+classes' rows then go through ``osc_kernel.osc_slots_call``, which adds
+them into the slots (``TorchMixer._expand``).
 """
 
 import ctypes
@@ -30,7 +30,7 @@ from ..constants import A2_MAXFRAG
 from . import build
 from . import osc_kernel as OK
 from . import packed as PK
-from .osc_kernel import _w
+from .osc_kernel import _w, add_rows
 from .superblock import (
     BASE_N, RR_N, RC_START, RC_LEN, RC_DPH, RC_SIZE, RC_POSOFF, RC_AMP0,
     RC_DAMP, RC_VOL0, RC_DVOL, RC_PAN0, RC_DPAN, RC_SLOT, RC_MODE, RC_OFF,
@@ -374,15 +374,6 @@ def class0_audio(c, mono):
     res = torch.where(dcf, dcres, res)
     return _panmix_rows(res, c["vol0"], c["dvol"], c["pan0"],
                         c["dpan"], c["off"], c["end"], c["mode"], mono)
-
-
-def add_rows(slots, slot_r, audio, mono):
-    """Adds row audio int32 [P, C*FRAG] into slots int32 [nslot, 2,
-    FRAG] at the rows' slots (channel 0 only when mono)."""
-    if mono:
-        slots[:, 0].index_add_(0, slot_r, audio)
-    else:
-        slots.view(slots.shape[0], 2 * FRAG).index_add_(0, slot_r, audio)
 
 
 def decode(table):

@@ -7,7 +7,7 @@ Counterpart of the JAX package's ``DeviceMixer``
 
   runs, packed or not --(expand_call: decode, run -> row expansion,
            ramp replay, noise/dc rows added)--> params, slots
-  params --(osc_call per pass class, index_add_)--> slots
+  params --(osc_slots_call per pass class: oscillator, slot adds)--> slots
   stash --(int32 segment sums)--> slots[ninst*F+1, 2, 64]
   slots --(stage tail: panmix/copy/waveshaper stages, fbdelay,
            filter12/dcblock/limiter, fm, in record order)--> slots
@@ -58,6 +58,7 @@ FRAG = A2_MAXFRAG
 # every kernel wrapper of the mixer's path, by kernel name; each counts
 # its launches in `.launches`
 KERNEL_WRAPPERS = {"osc_rows": OK.osc_call,
+                   "osc_slots": OK.osc_slots_call,
                    "fbdelay_dense": FB.fbd_dense_call,
                    "fbdelay_legacy": FB.fbd_legacy_call,
                    "filter": FL.filter_call, "fm": FM.fm_call,
@@ -412,8 +413,9 @@ class TorchMixer:
     the body's expansion (``expand.expand_call``) decodes.
 
     The run expansion runs through ``expand.expand_call``, the
-    oscillator through ``osc_kernel.osc_call``, the stage tail
-    through the fbdelay / filter / fm wrappers (the CUDA kernels for
+    oscillator and its slot adds through ``osc_kernel.osc_slots_call``,
+    the stage tail through the fbdelay / filter / fm wrappers (the CUDA
+    kernels for
     CUDA tensors, their plain versions on the CPU); with
     ``stage_mode="float"`` a filter12 / dcblock / limiter item whose
     class is eligible (the signature's flag: a filter12 class's lowest
@@ -1029,17 +1031,17 @@ class TorchMixer:
         the runs (the packed format where the signature has it), expands
         them into rows and adds the class-0 rows into ``slots`` int32
         [ninst*F+1, 2, 64] in place; each pass class's rows then go
-        through ``osc_call`` and one ``index_add_``."""
+        through ``osc_slots_call``, which adds them into the slots."""
         rows_sig, rpad, quality = sig[4], sig[5], sig[10]
         if not (rpad and any(NB for _, NB in rows_sig)):
             return
         mono = bool(quality & 32)
         classes, slot_r = EX.expand_call(*self._expand_args(sig, v, slots))
         for cls, tb, par, b0 in classes:
-            res = OK.osc_call(cls, tb, par, self._atlas_dev,
+            OK.osc_slots_call(cls, tb, par, self._atlas_dev, slots,
+                              slot_r[b0:b0 + par.shape[1]],
                               quality=quality & 15, fused_pm=True,
                               mono=mono)
-            EX.add_rows(slots, slot_r[b0:b0 + par.shape[1]], res.t(), mono)
 
     def _tail(self, sig, v, st, slots, master):
         """The stage half of a body: the stash adds, the stage items in

@@ -13,10 +13,14 @@ lerp, lofi lerp << 1), scales by the amplitude ramp with
 (vol/pan ramps, ``_mul_shr24``, the 2*vol clamp) and masks to the
 row's ``[OFF, END)`` window.  All arithmetic is int32 with wrap.
 
-``osc_call`` runs the plain version for CPU tensors and the kernel in
-``csrc/osc_kernel.cu`` for CUDA tensors; the kernel is built with
-``nvcc`` at first use into ``cuda/build/`` and bound with ctypes
-(``build.py``).
+Two entry points share the kernel in ``csrc/osc_kernel.cu`` (one body,
+two epilogues): ``osc_call`` returns the rows in the Pallas kernel's
+layout (plain version ``osc_rows_torch``), and ``osc_slots_call`` adds
+each row's samples into the (instance x fragment) slots in place, the
+JAX package's ``segment_sum`` after the kernel (plain version
+``osc_slots_torch``).  Each runs its plain version for CPU tensors and
+the kernel for CUDA tensors; the kernel is built with ``nvcc`` at first
+use into ``cuda/build/`` and bound with ctypes (``build.py``).
 """
 
 import ctypes
@@ -31,6 +35,7 @@ from . import build
 FRAG = A2_MAXFRAG           # 64 frames per row
 RPB = 128                   # rows per block
 NPARAM = 16                 # packed param vectors per row
+NPREAD = 13                 # of which the kernel reads the first 13
 
 # param indices within a row's NPARAM column (same layout as the JAX
 # package's kernel): slots 6..12 feed the fused per-row panmix
@@ -254,6 +259,27 @@ def osc_rows_torch(npass, tbase, params, atlas, quality=0, fused_pm=True,
     return out
 
 
+def add_rows(slots, slot_r, audio, mono):
+    """Adds row audio int32 [P, C*FRAG] into slots int32 [nslot, 2,
+    FRAG] (or [nslot, 1, FRAG] when mono) at the rows' slots (channel 0
+    only when mono), int32 with wrap."""
+    if mono:
+        slots[:, 0].index_add_(0, slot_r, audio)
+    else:
+        slots.view(slots.shape[0], 2 * FRAG).index_add_(0, slot_r, audio)
+
+
+def osc_slots_torch(npass, tbase, params, atlas, slots, slot_r, quality=0,
+                    fused_pm=True, mono=False):
+    """Plain version of the kernel's slots epilogue: ``osc_rows_torch``,
+    then each row's samples added into ``slots`` at ``slot_r`` (int64
+    [NB*RPB]) in place.  Returns slots."""
+    res = osc_rows_torch(npass, tbase, params, atlas, quality, fused_pm,
+                         mono)
+    add_rows(slots, slot_r, res.t(), mono)
+    return slots
+
+
 def seeded_blocks(npass, nblocks, rng, dead=False):
     """Seeded kernel inputs for checks: a synthetic pair atlas (random
     int16 samples) and `nblocks` 128-row blocks, each reading `npass`
@@ -298,6 +324,22 @@ def seeded_blocks(npass, nblocks, rng, dead=False):
     return tbase, p.astype(np.int32), atlas
 
 
+def seeded_slot_rows(nrows, nslot, rng):
+    """Seeded int64 slot indices [nrows] into nslot slots, the last the
+    dead slot, drawn so that many rows share a slot, within one 128-row
+    block too: runs of 1-16 neighbouring rows on one slot (as a voice's
+    rows), one run in eight on the dead slot, the rest on a few of the
+    live slots."""
+    out = np.empty(nrows, np.int64)
+    i = 0
+    while i < nrows:
+        k = int(rng.integers(1, 17))
+        out[i:i + k] = nslot - 1 if rng.random() < 0.125 \
+            else rng.integers(0, max(nslot - 1, 1))
+        i += k
+    return out
+
+
 # ---------------------------------------------------------------
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------
@@ -308,6 +350,11 @@ def _bind(lib):
         [ctypes.c_void_p] * 4                  # tbase params atlas out
         + [ctypes.c_int] * 6                   # NB T npass quality
         + [ctypes.c_void_p])                   #  fused mono; stream
+    lib.a2_osc_slots.restype = ctypes.c_int
+    lib.a2_osc_slots.argtypes = (
+        [ctypes.c_void_p] * 5                  # tbase params atlas slot_r
+        + [ctypes.c_int] * 8                   #  slots; nslot S NB T npass
+        + [ctypes.c_void_p])                   #  quality fused mono; stream
 
 
 def _load():
@@ -356,6 +403,59 @@ def osc_call(npass, tbase, params, atlas, quality=0, fused_pm=True,
 osc_call.launches = 0
 
 
+def osc_slots_call(npass, tbase, params, atlas, slots, slot_r, quality=0,
+                   fused_pm=True, mono=False):
+    """One pass-class oscillator evaluation added into slots: tbase int32
+    (NB,), params int32 (NPARAM, NB*RPB), atlas int32 (T, 128), slots
+    int32 (nslot, 2, FRAG) (or (nslot, 1, FRAG) when mono), slot_r
+    int64 (NB*RPB,): row r's samples are added into slots[slot_r[r]] in
+    place (channel 0 only when mono), int32 with wrap.  CPU tensors take
+    the plain version ``osc_slots_torch``; CUDA tensors launch the
+    kernel's slots epilogue (``osc_slots_call.launches`` counts those
+    launches) or raise.  The kernel adds nothing for a slot index outside
+    [0, nslot), where the plain version raises.  Returns slots."""
+    if params.device.type == "cpu":
+        return osc_slots_torch(npass, tbase, params, atlas, slots, slot_r,
+                               quality, fused_pm, mono)
+    if params.device.type != "cuda":
+        raise ValueError("osc_slots_call: unsupported device %s"
+                         % params.device)
+    NB = params.shape[1] // RPB
+    dev = params.device
+    S = slots.shape[1] if slots.dim() == 3 else 0
+    if S not in ((1, 2) if mono else (2,)):
+        raise ValueError("osc_slots_call: slots must be (nslot, %s, %d), "
+                         "got %s" % ("1 or 2" if mono else "2", FRAG,
+                                     tuple(slots.shape)))
+    for t, name, dtype, shape in (
+            (tbase, "tbase", torch.int32, (NB,)),
+            (params, "params", torch.int32, (NPARAM, NB * RPB)),
+            (atlas, "atlas", torch.int32, (atlas.shape[0], RPB)),
+            (slots, "slots", torch.int32, (slots.shape[0], S, FRAG)),
+            (slot_r, "slot_r", torch.int64, (NB * RPB,))):
+        build.check_tensor(t, "osc_slots_call", name, dtype, shape, dev)
+    if npass not in PASS_CLASSES or quality not in (0, 1, 2) \
+            or not slots.shape[0]:
+        raise ValueError("osc_slots_call: npass %r / quality %r / %d slots"
+                         % (npass, quality, slots.shape[0]))
+    if NB == 0:
+        return slots
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.a2_osc_slots(tbase.data_ptr(), params.data_ptr(),
+                               atlas.data_ptr(), slot_r.data_ptr(),
+                               slots.data_ptr(), slots.shape[0], S, NB,
+                               atlas.shape[0], npass, quality,
+                               int(bool(fused_pm)), int(bool(mono)), stream)
+    build.launch_check(err, "osc slots")
+    build.count_launch(osc_slots_call)
+    return slots
+
+
+osc_slots_call.launches = 0
+
+
 def ops_per_frame(quality, fused_pm, mono):
     """int32 ALU operations per row and frame of the kernel, counted by
     hand from csrc/osc_kernel.cu (adds, multiplies, shifts, masks,
@@ -371,3 +471,31 @@ def ops_per_frame(quality, fused_pm, mono):
         if not mono:
             ops += 3 + 4 + 6 + 2 * 4 + 4 + 1     # pan, v0/v1, clamp, L/R
     return ops
+
+
+def slots_work(blocks, atlas_rows, quality, fused_pm, mono):
+    """(bytes, int32 operations) that the slots form needs for the pass
+    classes' rows `blocks`, a list of (npass, tbase [NB], params [NPARAM,
+    NB*RPB], slot_r [NB*RPB]) in numpy (atlas_rows: the atlas's row
+    count): every row's NPREAD params and slot index and every block's
+    table base read once, the distinct atlas rows that the blocks'
+    tables cover read once, each slot that a live row touches read and
+    written once (C*FRAG words; C = 1 when mono or unfused), and for the
+    valid frames of the live rows (amp ramp not 0, window not empty)
+    ``ops_per_frame`` plus one add per output sample."""
+    C = 1 if mono or not fused_pm else 2
+    rows, touched = set(), set()
+    nbytes = nops = 0
+    for npass, tbase, params, slot_r in blocks:
+        for t in np.clip(np.asarray(tbase, np.int64), 0,
+                         atlas_rows - 1).tolist():
+            rows.update(range(t, min(t + npass, atlas_rows)))
+        p = np.asarray(params, np.int64)
+        win = np.clip(p[P_END], 0, FRAG) - np.clip(p[P_OFF], 0, FRAG)
+        live = ((p[P_AMP0] != 0) | (p[P_DAMP] != 0)) & (win > 0)
+        touched.update(np.unique(np.asarray(slot_r)[live]).tolist())
+        nbytes += p.shape[1] * (NPREAD * 4 + 8) + len(tbase) * 4
+        nops += int(win[live].sum()) * (ops_per_frame(quality, fused_pm,
+                                                      mono) + C)
+    nbytes += len(rows) * RPB * 4 + len(touched) * C * FRAG * 4 * 2
+    return nbytes, nops

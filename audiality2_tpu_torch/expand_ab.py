@@ -17,9 +17,11 @@ order earlier, current, current, earlier.
 
 Then the whole of ``TorchMixer._expand`` (the kernel, an oscillator
 launch per pass class and the pass classes' adds into the slots) with
-each of three forms of the adds, all bit-equal: ``index_add_`` of the
-oscillator's transposed output (the mixer's), of a contiguous copy of
-it, and along the slot axis of transposed slots.
+each of four forms of the adds, all bit-equal: the oscillator's slots
+epilogue (``osc_slots_call``, the mixer's), and after ``osc_call``
+``index_add_`` of the oscillator's transposed output (the mixer's
+before), of a contiguous copy of it, and along the slot axis of
+transposed slots.
 
 Then the current kernel on the same tables with a part of its work
 taken away, to show each part's share: no ramp table (no replay), the
@@ -91,21 +93,30 @@ def _add_slot_axis(slots, idx, res, mono):
     flat.t().index_add_(1, idx, res)
 
 
-# the pass classes' adds into the slots: the oscillator's output is
-# int32 [C*64, P], one column per row
-ADD_FORMS = {"index_add_ of the transposed output": _add_transposed,
+# the pass classes' adds into the slots: None adds inside the
+# oscillator (osc_slots_call); the others take osc_call's output, int32
+# [C*64, P], one column per row
+ADD_FORMS = {"the oscillator's slots epilogue": None,
+             "index_add_ of the transposed output": _add_transposed,
              "a contiguous copy, then index_add_": _add_copy,
              "index_add_ along the slot axis": _add_slot_axis}
 
 
 def whole_expand(args, m, sig, add):
-    """TorchMixer._expand with `add` for the pass classes' adds."""
+    """TorchMixer._expand with `add` for the pass classes' adds (None:
+    the oscillator's slots epilogue, as the mixer)."""
     mono = args[1]
     classes, slot_r = EX.expand_call(*args)
     for cls, tb, par, b0 in classes:
-        res = OK.osc_call(cls, tb, par, m._atlas_dev,
-                          quality=sig[10] & 15, fused_pm=True, mono=mono)
-        add(args[7], slot_r[b0:b0 + par.shape[1]], res, mono)
+        sl = slot_r[b0:b0 + par.shape[1]]
+        if add is None:
+            OK.osc_slots_call(cls, tb, par, m._atlas_dev, args[7], sl,
+                              quality=sig[10] & 15, fused_pm=True,
+                              mono=mono)
+        else:
+            add(args[7], sl, OK.osc_call(cls, tb, par, m._atlas_dev,
+                                         quality=sig[10] & 15,
+                                         fused_pm=True, mono=mono), mono)
 
 
 class _TwoLaunches:

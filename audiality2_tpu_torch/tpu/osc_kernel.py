@@ -4,9 +4,10 @@
 arbitrary wavetable rows (``OscBatch``), its evaluation on the card
 (``evaluate_osc_batch``) and the per-row numpy twin (``osc_rows_numpy``).
 
-``evaluate_osc_batch`` runs each pass class through ``osc_call``: the
+``evaluate_osc_batch`` runs each pass class through ``osc_slots_call``,
+which adds each row's samples at its index in the batch: the
 hand-written kernel (``cuda/csrc/osc_kernel.cu``) for an atlas on a CUDA
-device, its plain PyTorch version (``osc_rows_torch``) for one on the
+device, its plain PyTorch version (``osc_slots_torch``) for one on the
 CPU.  The kernel clamps a table lookup into its block's table, the JAX
 interpreter into the whole atlas, and the twin does not clamp; they
 agree on every row whose 64 frames and interpolation window stay inside
@@ -21,7 +22,7 @@ import torch
 from ..cuda.osc_kernel import (FRAG, NPARAM, P_AMP0, P_DAMP, P_DF, P_DPAN,
                                P_DPOS, P_DVOL, P_END, P_F0, P_MODE, P_OFF,
                                P_PAN0, P_POS0, P_VOL0, PASS_CLASSES, RPB,
-                               PairAtlas, osc_call, pass_class)
+                               PairAtlas, osc_slots_call, pass_class)
 
 __all__ = ["PairAtlas", "pass_class", "PASS_CLASSES", "FRAG", "RPB",
            "NPARAM", "P_POS0", "P_F0", "P_DPOS", "P_DF", "P_AMP0", "P_DAMP",
@@ -119,17 +120,18 @@ def evaluate_osc_batch(batch, device_atlas=None, quality=0):
     if not batch.n:
         return np.zeros((0, FRAG), np.int32)
     dev = atlas.device
-    # row batch.n collects the padding rows, and is dropped
-    outs = torch.zeros((batch.n + 1, FRAG), dtype=torch.int32, device=dev)
+    # each row adds into its own row of zeros (the order indices are
+    # unique); row batch.n collects the padding rows, and is dropped
+    outs = torch.zeros((batch.n + 1, 1, FRAG), dtype=torch.int32,
+                       device=dev)
     for cls, tbase_arr, params, order in batch.build():
-        res = osc_call(cls, torch.from_numpy(tbase_arr).to(dev),
-                       torch.from_numpy(params).to(dev), atlas,
-                       quality=quality)
-        idx = torch.from_numpy(order.reshape(-1)).to(dev)
-        idx = torch.where(idx >= 0, idx, batch.n)
-        # channel 0 carries the raw amped rows (mode 0, END = FRAG)
-        outs.index_copy_(0, idx, res[:FRAG].T)
-    return outs[:batch.n].cpu().numpy()
+        idx = order.reshape(-1)
+        # unfused channel 0 is the raw amped row (mode 0, END = FRAG)
+        osc_slots_call(cls, torch.from_numpy(tbase_arr).to(dev),
+                       torch.from_numpy(params).to(dev), atlas, outs,
+                       torch.from_numpy(np.where(idx >= 0, idx, batch.n))
+                       .to(dev), quality=quality, fused_pm=False, mono=True)
+    return outs[:batch.n, 0].cpu().numpy()
 
 
 # ---------------------------------------------------------------

@@ -12,11 +12,18 @@ seconds:
 2. build: the native runtime (native/build.sh) and the eight kernel
    libraries (one nvcc per source for sm_90a), from the sources in the
    checkout, all in parallel;
-3. kernel: the CUDA oscillator against its plain PyTorch version on
-   the card, on seeded rows for every pass class x quality x mono x
-   fused_pm and on the slice song's real blocks: 0 mismatches; times
-   the kernel (the median of OSC_ROUNDS rounds, each round's time
-   kept) and the plain version at the real shape;
+3. kernel: the CUDA oscillator's two epilogues against their plain
+   PyTorch versions on the card: the rows (``osc_call`` against
+   ``osc_rows_torch``) and the slot adds (``osc_slots_call`` against
+   ``osc_slots_torch``, seeded slot contents, slots shared by many rows
+   of a block and the dead slot), on seeded rows for every pass class x
+   quality x mono x fused_pm and on the slice song's real blocks and
+   slot indices: 0 mismatches; times the slots form per superblock
+   against the earlier form (``osc_call``, then ``index_add_`` of the
+   transposed rows) in turns (OSC_ROUNDS each, device time in a CUDA
+   graph), beside its bound, the rows epilogue alone (the median of
+   OSC_ROUNDS rounds) and the plain versions at the real shape, and
+   counts how many live rows of a block share a slot;
 4. tail: the stage-tail kernels (fbdelay dense and legacy, filter12 /
    dcblock / limiter, fm) against their plain versions: on seeded
    tables for every variant (the CUDA entry point against the same
@@ -42,7 +49,8 @@ seconds:
    first superblocks
    of the slice song (plain tables) and the effects song (packed); the
    mixer's ``_expand`` on them equal to the earlier path (the
-   decoders, the torch glue, the oscillator); the kernel's ms (a CUDA
+   decoders, the torch glue, the oscillator, an ``index_add_`` per pass
+   class), with no ``index_add_`` of its own; the kernel's ms (a CUDA
    graph of repeated launches) beside its bound and the plain version's
    ms; the kernel nodes of a CUDA graph of one ``_expand`` (at most 40)
    and of one superblock body, each beside the earlier path's;
@@ -112,7 +120,8 @@ seconds:
    oscillator's general entry point: the JAX package's kernel-ceiling
    batch (16,384 rows on saw mip 0, seed 0) at qualities 0 and 2 and a
    mixture of five waves at mips 0/1/3/5 at 0/1/2, each call on the
-   card with 5 oscillator launches and equal to the plain version on
+   card with 5 oscillator launches (the slots epilogue, each row into
+   its own row of the output) and equal to the plain version on
    the CPU and to the numpy twin; the kernel's device ms (a CUDA graph),
    the host add and build ms and the copy-back ms, printed beside the
    card's name and power limit.
@@ -396,65 +405,170 @@ def compare(cls, tb, par, atlas, quality, fused, mono):
     return mismatches([(got, want)])
 
 
+def compare_slots(blocks, atlas, slots, quality, fused, mono):
+    """The slots epilogue against osc_slots_torch, each adding the pass
+    classes' rows `blocks` ((cls, tb, par, slot_r) each) into its own
+    copy of `slots`."""
+    got, want = slots.clone(), slots.clone()
+    for cls, tb, par, sl in blocks:
+        OK.osc_slots_call(cls, tb, par, atlas, got, sl, quality=quality,
+                          fused_pm=fused, mono=mono)
+        OK.osc_slots_torch(cls, tb, par, atlas, want, sl, quality, fused,
+                           mono)
+    return mismatches([(got, want)])
+
+
+def slot_sharing(blocks):
+    """How many live rows of one 128-row block share a slot, over the
+    blocks of `blocks`: (mean of each block's largest count, the share
+    of live rows whose slot holds another live row of their block)."""
+    most, shared, live_rows = [], 0, 0
+    for _, _, par, sl in blocks:
+        p = par.cpu().numpy().astype(np.int64)
+        win = np.clip(p[OK.P_END], 0, OK.FRAG) - np.clip(p[OK.P_OFF], 0,
+                                                         OK.FRAG)
+        live = (((p[OK.P_AMP0] != 0) | (p[OK.P_DAMP] != 0)) & (win > 0)) \
+            .reshape(-1, OK.RPB)
+        srow = sl.cpu().numpy().reshape(-1, OK.RPB)
+        for lv, s in zip(live, srow):
+            if lv.any():
+                _, cnt = np.unique(s[lv], return_counts=True)
+                most.append(int(cnt.max()))
+                shared += int(cnt[cnt > 1].sum())
+                live_rows += int(lv.sum())
+    return float(np.mean(most)), shared / max(live_rows, 1)
+
+
 def phase_kernel():
-    """Oscillator kernel vs plain version; returns the kernel's JSON
-    record (launches filled in by the slice phase)."""
+    """The oscillator kernel's two epilogues against their plain
+    versions, and the slots epilogue timed against the earlier form
+    (osc_call, then index_add_ of the transposed rows) in turns; returns
+    the JSON records of both (launches filled in by the slice phase)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(2024)
     nvar = 0
     max_err = 0
+    nslot = 64
     for npass in OK.PASS_CLASSES:
         tb, par, atlas = (torch.from_numpy(x).to(DEVICE) for x in
                           OK.seeded_blocks(npass, 16, rng, dead=True))
+        # slots shared by many rows, within a block too, and the dead
+        # slot; seeded contents, so that the adds wrap
+        sl = torch.from_numpy(OK.seeded_slot_rows(par.shape[1], nslot,
+                                                  rng)).to(DEVICE)
+        slots = torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, (nslot, 2, OK.FRAG)).astype(np.int32)) \
+            .to(DEVICE)
         for quality in (0, 1, 2):
             for fused in (True, False):
                 for mono in (False, True):
-                    bad, err = compare(npass, tb, par, atlas, quality,
-                                       fused, mono)
-                    check(bad == 0, "kernel != plain: npass %d quality %d "
-                          "fused %s mono %s: %d mismatches"
-                          % (npass, quality, fused, mono, bad))
-                    max_err = max(max_err, err)
+                    for form, (bad, err) in (
+                            ("rows", compare(npass, tb, par, atlas, quality,
+                                             fused, mono)),
+                            ("slots", compare_slots(
+                                [(npass, tb, par, sl)], atlas, slots,
+                                quality, fused, mono))):
+                        check(bad == 0, "kernel (%s) != plain: npass %d "
+                              "quality %d fused %s mono %s: %d mismatches"
+                              % (form, npass, quality, fused, mono, bad))
+                        max_err = max(max_err, err)
                     nvar += 1
 
     # the slice song's first superblock at its real shapes
     prog, r, atlas = first_program("slice", 2)
-    classes, _, mono = r.mixer.row_params(prog)
+    classes, slot_r, mono = r.mixer.row_params(prog)
+    blocks = []
+    b0 = 0
+    for (cls, NB), (_, tb, par) in zip(
+            [(c, NB) for c, NB, _ in prog.class_blocks if NB], classes):
+        if cls:
+            blocks.append((cls, tb, par, slot_r[b0:b0 + NB * OK.RPB]))
+        b0 += NB * OK.RPB
+    zeros = torch.zeros((prog.ninst * prog.F + 1, 2, OK.FRAG),
+                        dtype=torch.int32, device=DEVICE)
+    for cls, tb, par, _ in blocks:
+        bad, err = compare(cls, tb, par, atlas, 0, True, mono)
+        check(bad == 0, "kernel (rows) != plain on the slice song's class "
+              "%d blocks: %d mismatches" % (cls, bad))
+        max_err = max(max_err, err)
+    bad, err = compare_slots(blocks, atlas, zeros, 0, True, mono)
+    check(bad == 0, "kernel (slots) != plain on the slice song's "
+          "superblock: %d mismatches" % bad)
+    max_err = max(max_err, err)
+
+    # the rows epilogue alone, as earlier PRs timed it
     rounds = [0.0] * OSC_ROUNDS
     plain_ms = 0.0
     nbytes = nops = 0
     nrows = 0
-    shapes = []
-    for cls, tb, par in classes:
-        if cls == 0:
-            continue
-        bad, err = compare(cls, tb, par, atlas, 0, True, mono)
-        check(bad == 0, "kernel != plain on the slice song's class %d "
-              "blocks: %d mismatches" % (cls, bad))
-        max_err = max(max_err, err)
+    C = 1 if mono else 2
+    for cls, tb, par, sl in blocks:
         R = par.shape[1]
         nrows += R
-        shapes.append("%dx%d" % (cls, R // OK.RPB))
         for i in range(OSC_ROUNDS):
             rounds[i] += cuda_ms(lambda: OK.osc_call(cls, tb, par, atlas, 0,
                                                      True, mono), reps=20)
         plain_ms += cuda_ms(lambda: OK.osc_rows_torch(cls, tb, par, atlas,
                                                       0, True, mono),
                             reps=3, warmup=1)
-        C = 1 if mono else 2
         nbytes += par.numel() * 4 + tb.numel() * 4 + atlas.numel() * 4 \
             + C * OK.FRAG * R * 4
         nops += R * OK.FRAG * OK.ops_per_frame(0, True, mono)
+    buf = zeros.clone()
+    plain_slots_ms = cuda_ms(lambda: [OK.osc_slots_torch(
+        cls, tb, par, atlas, buf, sl, 0, True, mono)
+        for cls, tb, par, sl in blocks], reps=3, warmup=1)
     ms = float(np.median(rounds))
-    phase("kernel", t0, "%d variants + slice blocks (pass class x blocks: "
-          "%s, %d rows) equal to the plain version; kernel %.4f ms (median "
-          "of rounds %s), plain %.3f ms per superblock"
-          % (nvar, " ".join(shapes), nrows, ms,
-             " ".join("%.4f" % t for t in rounds), plain_ms))
-    return record("osc_rows", "audiality2_tpu_torch/cuda/csrc/osc_kernel.cu",
-                  "audiality2_tpu/tpu/osc_kernel.py:117", ms, plain_ms,
-                  nbytes, nops, max_err, rows=nrows,
-                  variants_checked=nvar, ms_rounds=rounds)
+
+    # the superblock's oscillator and slot adds: the earlier form and the
+    # slots epilogue in turns (device time per call in a CUDA graph)
+    def earlier():
+        for cls, tb, par, sl in blocks:
+            res = OK.osc_call(cls, tb, par, atlas, 0, True, mono)
+            EX.add_rows(buf, sl, res.t(), mono)
+
+    def slots_form():
+        for cls, tb, par, sl in blocks:
+            OK.osc_slots_call(cls, tb, par, atlas, buf, sl, 0, True, mono)
+    t_earlier, t_slots = [], []
+    for i in range(OSC_ROUNDS):
+        pair = ((earlier, t_earlier), (slots_form, t_slots))
+        for fn, out in (pair if i % 2 == 0 else pair[::-1]):
+            out.append(graph_ms(fn))
+    ms_slots = float(np.median(t_slots))
+    ms_earlier = float(np.median(t_earlier))
+    nbytes_s, nops_s = OK.slots_work(
+        [(cls, tb.cpu().numpy(), par.cpu().numpy(), sl.cpu().numpy())
+         for cls, tb, par, sl in blocks], atlas.shape[0], 0, True, mono)
+    share = slot_sharing(blocks)
+    shapes = " ".join("%dx%d" % (cls, par.shape[1] // OK.RPB)
+                      for cls, _, par, _ in blocks)
+    bms, by = bound(nbytes_s, nops_s)
+    phase("kernel", t0, "%d variants x (rows, slots on shared slots) + "
+          "slice blocks (pass class x blocks: %s, %d rows) equal to the "
+          "plain versions; slots form %.4f ms per superblock (rounds %s; "
+          "bound %.4f ms, %s) against osc_call + index_add_ %.4f ms "
+          "(rounds %s), plain %.3f ms; rows alone %.4f ms (rounds %s), "
+          "plain %.3f ms; live rows per slot within a block: largest %.2f "
+          "(mean over blocks), %.1f%% of live rows share their slot"
+          % (nvar, shapes, nrows, ms_slots,
+             " ".join("%.4f" % t for t in t_slots), bms, by, ms_earlier,
+             " ".join("%.4f" % t for t in t_earlier), plain_slots_ms, ms,
+             " ".join("%.4f" % t for t in rounds), plain_ms,
+             share[0], 100 * share[1]))
+    src = "audiality2_tpu_torch/cuda/csrc/osc_kernel.cu"
+    return [record("osc_slots", src, "audiality2_tpu/tpu/osc_kernel.py:117",
+                   ms_slots, plain_slots_ms, nbytes_s, nops_s, max_err,
+                   rows=nrows, variants_checked=nvar, ms_rounds=t_slots,
+                   earlier_ms=ms_earlier, earlier_rounds=t_earlier,
+                   earlier="osc_call + index_add_ of the transposed rows",
+                   replaces_function="_make_kernel via _osc_call (:283), "
+                   "with the segment_sum at audiality2_tpu/tpu/"
+                   "superblock.py:1694", rows_per_slot_in_block=share[0],
+                   shared_row_share=share[1]),
+            record("osc_rows", src, "audiality2_tpu/tpu/osc_kernel.py:117",
+                   ms, plain_ms, nbytes, nops, max_err, rows=nrows,
+                   variants_checked=nvar, ms_rounds=rounds)]
 
 
 # ---------------------------------------------------------------
@@ -847,6 +961,27 @@ def glue_expand(m, sig, v, slots):
         EX.add_rows(slots, slot_r[b0:b0 + par.shape[1]], res.t(), mono)
 
 
+@contextlib.contextmanager
+def index_adds():
+    """The shapes of the tensors that ``index_add_`` is called on inside
+    the block."""
+    calls = []
+    real = torch.Tensor.index_add_
+    own = "index_add_" in vars(torch.Tensor)
+
+    def spy(self, *args, **kw):
+        calls.append(tuple(self.shape))
+        return real(self, *args, **kw)
+    torch.Tensor.index_add_ = spy
+    try:
+        yield calls
+    finally:
+        if own:
+            torch.Tensor.index_add_ = real
+        else:
+            del torch.Tensor.index_add_
+
+
 def real_expand(song):
     """The first superblock of `song` (stereo, 2752x64 frames) on a
     profiled card mixer: the kernel against expand_plain, the mixer's
@@ -864,7 +999,10 @@ def real_expand(song):
     check(bad == 0, "expand on the %s song's superblock: %d mismatches"
           % (song, bad))
     got, old = zeros.clone(), zeros.clone()
-    m._expand(sig, v, got)
+    with index_adds() as adds:
+        m._expand(sig, v, got)
+    check(not adds, "%s: _expand ran %d index_add_ (shapes %s)"
+          % (song, len(adds), adds))
     glue_expand(m, sig, v, old)
     check(int((got != old).sum()) == 0 and int(got.abs().max()) > 0,
           "%s: _expand differs from the earlier path" % song)
@@ -1010,15 +1148,20 @@ def split(tm):
 
 def phase_slice():
     t0 = time.perf_counter()
-    launches, xrt, tm, dt, _, _ = render_check("slice", 2, 10.0, "slice "
-                                            "stereo 10 s", ["osc_rows"])
-    mono, mono_xrt, _, _, _, _ = render_check("slice", 1, 2.0,
-                                           "slice mono 2 s", ["osc_rows"])
+    launches, xrt, tm, dt, _, _ = render_check(
+        "slice", 2, 10.0, "slice stereo 10 s", PATH_KERNELS["slice"])
+    mono, mono_xrt, _, _, _, _ = render_check(
+        "slice", 1, 2.0, "slice mono 2 s", PATH_KERNELS["slice"])
+    # the render adds the oscillator's rows into the slots in its kernel:
+    # the rows epilogue (osc_call) is off the path
+    for label, l in (("stereo", launches), ("mono", mono)):
+        check(l["osc_rows"] == 0, "slice %s: %d osc_call launches on the "
+              "render path" % (label, l["osc_rows"]))
     phase("slice", t0, "stereo 10 s == native, %.1f x realtime (%.3f s: "
-          "%s), %d oscillator launches; mono 2 s == native, %.1f x "
-          "realtime, %d launches"
-          % (xrt, dt, split(tm), launches["osc_rows"], mono_xrt,
-             mono["osc_rows"]))
+          "%s), %d oscillator launches (slots epilogue, none of the rows "
+          "epilogue); mono 2 s == native, %.1f x realtime, %d launches"
+          % (xrt, dt, split(tm), launches["osc_slots"], mono_xrt,
+             mono["osc_slots"]))
     return launches
 
 
@@ -1046,15 +1189,15 @@ def phase_legacy():
 # ---------------------------------------------------------------
 
 # each kernel's name in the profiler's device trace
-KERNEL_NAMES = {"osc_rows": "osc_rows_kernel",
+KERNEL_NAMES = {"osc_slots": "osc_slots_kernel",
                 "fbdelay_dense": "fbd_dense_kernel",
                 "fbdelay_legacy": "fbd_legacy_kernel",
                 "filter": "filter_kernel", "fm": "fm_kernel",
                 "expand": "expand_kernel"}
 # the kernels of each song's path (the effects song's profiled renders
 # also run the packed format: render_check)
-PATH_KERNELS = {"slice": ["osc_rows", "expand"],
-                "effects": ["osc_rows", "fbdelay_dense", "filter", "fm",
+PATH_KERNELS = {"slice": ["osc_slots", "expand"],
+                "effects": ["osc_slots", "fbdelay_dense", "filter", "fm",
                             "expand"],
                 "late_fbdelay": ["fbdelay_legacy", "expand"]}
 
@@ -1892,7 +2035,7 @@ def phase_device_mix():
         if song == "slice":
             check(dm is not None and dm.device.type == "cuda",
                   "slice device_mix: no mixer on the card")
-            check(launches["osc_rows"] > 0, "slice device_mix: the "
+            check(launches["osc_slots"] > 0, "slice device_mix: the "
                   "oscillator kernel never launched")
             res[song] = launches
         else:
@@ -2058,17 +2201,19 @@ def phase_osc_batch(card):
     zero_launches()
     got = {}
     for label, b, _, q in cases:
-        before = OK.osc_call.launches
+        before = OK.osc_slots_call.launches
         got[label, q] = TOK.evaluate_osc_batch(b, quality=q)
         torch.cuda.synchronize()
-        check(OK.osc_call.launches - before == len(TOK.PASS_CLASSES),
+        check(OK.osc_slots_call.launches - before == len(TOK.PASS_CLASSES),
               "osc_batch %s q%d: %d oscillator launches, not %d"
-              % (label, q, OK.osc_call.launches - before,
+              % (label, q, OK.osc_slots_call.launches - before,
                  len(TOK.PASS_CLASSES)))
     launches = read_launches()
-    check(launches["osc_rows"] == len(TOK.PASS_CLASSES) * len(cases),
-          "osc_batch: %d oscillator launches for %d calls"
-          % (launches["osc_rows"], len(cases)))
+    check(launches["osc_slots"] == len(TOK.PASS_CLASSES) * len(cases)
+          and launches["osc_rows"] == 0,
+          "osc_batch: %d oscillator launches (%d of the rows epilogue) for "
+          "%d calls" % (launches["osc_slots"], launches["osc_rows"],
+                        len(cases)))
     cpu_atlas = torch.from_numpy(pa.data)
     for label, b, _, q in cases:
         out = got[label, q]
@@ -2099,8 +2244,12 @@ def phase_osc_batch(card):
         builds.append((time.perf_counter() - t2) * 1e3)
     atlas = torch.as_tensor(pa.data, device=DEVICE)
     dev_calls = [(cls, torch.as_tensor(t, device=DEVICE),
-                  torch.as_tensor(p, device=DEVICE))
-                 for cls, t, p, _ in calls]
+                  torch.as_tensor(p, device=DEVICE),
+                  torch.as_tensor(np.where(o >= 0, o, bench.n).reshape(-1),
+                                  device=DEVICE))
+                 for cls, t, p, o in calls]
+    outs = torch.zeros((bench.n + 1, 1, OK.FRAG), dtype=torch.int32,
+                       device=DEVICE)
     # the work the function needs: the pair rows of the tables its live
     # rows read, each live row's params and its FRAG output words, and
     # its frames' operations without the panmix (channel 0 of mode 0
@@ -2117,8 +2266,9 @@ def phase_osc_batch(card):
         dev_out.cpu().numpy()
         copies.append((time.perf_counter() - t1) * 1e3)
     for q in (0, 2):
-        kernel_ms = graph_ms(lambda: [OK.osc_call(cls, t, p, atlas, q)
-                                      for cls, t, p in dev_calls])
+        kernel_ms = graph_ms(lambda: [
+            OK.osc_slots_call(cls, t, p, atlas, outs, o, q, False, True)
+            for cls, t, p, o in dev_calls])
         walls = []
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -2132,7 +2282,7 @@ def phase_osc_batch(card):
             msamples_s=bench.n * OK.FRAG / kernel_ms / 1e3,
             call_ms=float(np.median(walls)))
     times.update(rows=bench.n, blocks=[p.shape[1] // OK.RPB
-                                       for _, _, p in dev_calls],
+                                       for _, _, p, _ in dev_calls],
                  add_ms=float(np.median(adds)),
                  build_ms=float(np.median(builds)),
                  copy_ms=float(np.median(copies)))
@@ -2150,7 +2300,7 @@ def phase_osc_batch(card):
     phase("osc_batch", t0, "%s equal to the plain version and the numpy "
           "twin; %d oscillator launches (5 per call)"
           % (", ".join("%s q%d (%d rows)" % (label, q, b.n)
-                       for label, b, _, q in cases), launches["osc_rows"]))
+                       for label, b, _, q in cases), launches["osc_slots"]))
     return launches, times
 
 
@@ -2248,7 +2398,7 @@ def phase_shards(card):
     count("effects nccl 1 rank")
     held("slice 4 shards", "slice", sharded_render("slice", 2, frames, 4))
     launches = count("slice 4 shards")
-    for k in ("osc_rows", "filter", "fm", "expand"):
+    for k in ("osc_slots", "filter", "fm", "expand"):
         check(launches[k] > 0, "shards: the %s kernel never launched in a "
               "sharded render" % k)
     check(launches["fbdelay_dense"] + launches["fbdelay_legacy"] > 0,
@@ -2303,7 +2453,7 @@ def main(argv=None):
     phase_build()
     kernels = []
     if "kernel" in want:
-        kernels.append(phase_kernel())
+        kernels += phase_kernel()
     if "tail" in want:
         kernels += phase_tail()
     extra = {}
@@ -2313,7 +2463,8 @@ def main(argv=None):
         extra["capture"] = phase_capture()
     paths = {}
     if "slice" in want:
-        paths["osc_rows"] = phase_slice()
+        # the rows epilogue's count there is 0 (checked)
+        paths["osc_slots"] = paths["osc_rows"] = phase_slice()
     if "effects" in want:
         effects = phase_effects()
         # the standalone decoder is off the main path: its launches there
@@ -2367,9 +2518,9 @@ def main(argv=None):
             rec["launches_by_path"] = {
                 p: l[rec["name"]]
                 for p, l in extra["pipeline_launches"].items()}
-        if osc_batch is not None and rec["name"] == "osc_rows":
+        if osc_batch is not None and rec["name"] == "osc_slots":
             rec.setdefault("launches_by_path", {})["osc_batch"] = \
-                osc_batch["osc_rows"]
+                osc_batch["osc_slots"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:

@@ -165,7 +165,7 @@ def test_evaluate_matches_jax_interpret(atlases):
     assert int((got != want).sum()) == 0
     assert np.abs(got).max() > 0
     # the CPU path never reaches the kernel
-    assert COK.osc_call.launches == 0
+    assert COK.osc_slots_call.launches == 0
 
 
 @pytest.mark.parametrize("quality", [0, 1, 2])
@@ -176,7 +176,7 @@ def test_evaluate_matches_twin(atlases, quality):
     got = TOK.evaluate_osc_batch(tb, torch.from_numpy(atlases[2].data),
                                  quality=quality)
     assert int((got != twin(atlases, tb, quality)).sum()) == 0
-    assert COK.osc_call.launches == 0
+    assert COK.osc_slots_call.launches == 0
 
 
 def test_evaluate_empty(atlases):
@@ -242,13 +242,14 @@ def test_evaluate_without_cuda_raises(atlases, monkeypatch):
     the call raises and computes nothing on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = []
-    monkeypatch.setattr(TOK, "osc_call", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(TOK, "osc_slots_call",
+                        lambda *a, **k: calls.append(a))
     for rows in ([], mixture(atlases, 2, 9)):
         _, tb = batches(atlases, rows)
         for dev_atlas in (None, atlases[2].data):
             with pytest.raises(RuntimeError, match="CUDA"):
                 TOK.evaluate_osc_batch(tb, dev_atlas)
-    assert calls == [] and COK.osc_call.launches == 0
+    assert calls == [] and COK.osc_slots_call.launches == 0
 
 
 def test_osc_batch_without_jax():
